@@ -1,0 +1,223 @@
+"""Config system: YAML + dot-override merging onto an attribute-access dict
+(the subset of ``dinov3_tpu/configs/config.py`` the serve path reads).
+
+The default schema is this package's copy of ``ssl_default_config.yaml``
+(held equal to the JAX package's by the tests); a run YAML is merged on
+top, then ``key.path=value`` overrides. The JAX loader's batch-size lr
+scaling and its training guardrails come with the training slice.
+"""
+
+from __future__ import annotations
+
+import ast
+import copy
+import os
+import warnings
+from pathlib import Path
+from typing import Any, Iterable, Mapping
+
+import yaml
+
+_DEFAULT_YAML = Path(__file__).parent / "ssl_default_config.yaml"
+
+
+class ConfigNode(dict):
+    """A dict with attribute access and strict missing-key errors."""
+
+    def __getattr__(self, name: str) -> Any:
+        try:
+            value = self[name]
+        except KeyError as e:
+            raise AttributeError(f"config has no key {name!r}") from e
+        if isinstance(value, dict) and not isinstance(value, ConfigNode):
+            value = ConfigNode(value)
+            self[name] = value
+        return value
+
+    def __setattr__(self, name: str, value: Any) -> None:
+        self[name] = value
+
+    def __deepcopy__(self, memo):
+        return ConfigNode(copy.deepcopy(dict(self), memo))
+
+    def to_dict(self) -> dict:
+        out = {}
+        for k, v in self.items():
+            out[k] = v.to_dict() if isinstance(v, ConfigNode) else (
+                dict(v) if isinstance(v, dict) else v
+            )
+        return out
+
+
+def _wrap(tree: Any) -> Any:
+    if isinstance(tree, Mapping):
+        return ConfigNode({k: _wrap(v) for k, v in tree.items()})
+    return tree
+
+
+def _merge(base: dict, overlay: Mapping) -> dict:
+    """Recursively merge ``overlay`` onto ``base`` (overlay wins)."""
+    for k, v in overlay.items():
+        if isinstance(v, Mapping) and isinstance(base.get(k), Mapping):
+            _merge(base[k], v)
+        else:
+            base[k] = copy.deepcopy(v) if isinstance(v, (dict, list)) else v
+    return base
+
+
+def _parse_value(text: str) -> Any:
+    """Parse an override value with YAML-ish typing."""
+    try:
+        return yaml.safe_load(text)
+    except yaml.YAMLError:
+        try:
+            return ast.literal_eval(text)
+        except (ValueError, SyntaxError):
+            return text
+
+
+def apply_dot_overrides(cfg: ConfigNode, overrides: Iterable[str]) -> ConfigNode:
+    """Apply ``a.b.c=value`` overrides in place; numeric components index
+    lists. Strict against the schema: an unknown section or key raises
+    unless the path is prefixed with ``+``."""
+    for item in overrides:
+        if "=" not in item:
+            raise ValueError(f"override {item!r} is not of the form key.path=value")
+        path, _, raw = item.partition("=")
+        path = path.strip()
+        allow_new = path.startswith("+")
+        if allow_new:
+            path = path[1:]
+        keys = path.split(".")
+        node = cfg
+        for depth, k in enumerate(keys[:-1]):
+            if isinstance(node, list):
+                node = node[int(k)]
+                continue
+            nxt = node.get(k)
+            if isinstance(nxt, list):
+                node = nxt
+                continue
+            if not isinstance(nxt, dict):
+                if nxt is None and k not in node and not allow_new:
+                    raise KeyError(
+                        f"override {item!r}: unknown section "
+                        f"{'.'.join(keys[:depth + 1])!r} (prefix with '+' "
+                        "to add new keys)"
+                    )
+                if nxt is not None and not allow_new:
+                    raise KeyError(
+                        f"override {item!r}: "
+                        f"{'.'.join(keys[:depth + 1])!r} is a value, not a "
+                        "section (prefix with '+' to replace it with one)"
+                    )
+                nxt = ConfigNode()
+                node[k] = nxt
+            elif not isinstance(nxt, ConfigNode):
+                nxt = ConfigNode(nxt)
+                node[k] = nxt
+            node = nxt
+        leaf = keys[-1]
+        value = _parse_value(raw.strip())
+        if isinstance(node, list):
+            node[int(leaf)] = value
+        else:
+            if not allow_new and leaf not in node:
+                raise KeyError(
+                    f"override {item!r}: unknown key {path!r} (prefix "
+                    "with '+' to add new keys)"
+                )
+            if (not allow_new and isinstance(node.get(leaf), dict)
+                    and not isinstance(value, dict)):
+                raise KeyError(
+                    f"override {item!r}: {path!r} is a section, not a "
+                    "value (prefix with '+' to replace it)"
+                )
+            node[leaf] = value
+    return cfg
+
+
+def get_default_config() -> ConfigNode:
+    with open(_DEFAULT_YAML) as f:
+        return _wrap(yaml.safe_load(f))
+
+
+def load_config(
+    config_file: str | os.PathLike | None = None,
+    overrides: Iterable[str] = (),
+) -> ConfigNode:
+    """default yaml <- run yaml <- dot overrides."""
+    cfg = get_default_config().to_dict()
+    if config_file:
+        with open(config_file) as f:
+            run_cfg = yaml.safe_load(f) or {}
+        _merge(cfg, run_cfg)
+    cfg = _wrap(cfg)
+    # reference recipes use `train.batch_size_per_gpu`; accept it as an alias
+    if "batch_size_per_gpu" in cfg.train:
+        cfg.train.batch_size_per_device = cfg.train.pop("batch_size_per_gpu")
+    apply_dot_overrides(cfg, overrides)
+    return cfg
+
+
+def continuous_packing_wished(cfg: ConfigNode) -> bool:
+    """``serve.continuous_packing``: auto/true (default) = the packed
+    engine; false = the per-shape oracle engine."""
+    cp = (cfg.get("serve") or {}).get("continuous_packing", "auto")
+    if isinstance(cp, str):
+        return cp.lower() in ("auto", "true", "on")
+    return bool(cp)
+
+
+def serve_patch_features_wished(cfg: ConfigNode) -> bool:
+    """``serve.patch_features``: opt-in per-token feature serving."""
+    pf = (cfg.get("serve") or {}).get("patch_features", False)
+    if isinstance(pf, str):
+        return pf.lower() in ("true", "on", "1")
+    return bool(pf)
+
+
+def serve_pad_waste_floor(
+    row_tokens: int, patch_size: int, n_prefix: int,
+    min_px: int, max_px: int,
+) -> dict:
+    """Worst-case per-row pad waste over the serve resolution envelope.
+
+    A square image of r px spans ``n_prefix + (r/p)^2`` tokens; a row
+    holds ``row_tokens // that`` of them and wastes the remainder. Returns
+    the worst ``{"px", "seq_len", "waste"}`` over the envelope plus
+    ``"mean_waste"``, the waste averaged uniformly over it."""
+    worst = {"px": min_px, "seq_len": 0, "waste": 0.0}
+    wastes = []
+    for px in range(min_px, max_px + 1, patch_size):
+        if px % patch_size:
+            continue
+        seq = n_prefix + (px // patch_size) ** 2
+        if seq > row_tokens:
+            continue
+        waste = 1.0 - (row_tokens // seq) * seq / row_tokens
+        wastes.append(waste)
+        if waste > worst["waste"]:
+            worst = {"px": px, "seq_len": seq, "waste": waste}
+    worst["mean_waste"] = sum(wastes) / len(wastes) if wastes else 0.0
+    return worst
+
+
+def warn_serve_pad_waste(
+    pad_waste: float, threshold: float = 0.15, stacklevel: int = 2,
+    axis: str = "serve token budget",
+) -> str | None:
+    """Warn when a serve mix (or the envelope's floor) spends more than
+    ``threshold`` of the token budget on padding. Returns the message or
+    None."""
+    if pad_waste <= threshold:
+        return None
+    msg = (
+        f"serve pad-waste axis [{axis}]: {pad_waste:.1%} of the packed "
+        f"token budget is padding (> {threshold:.0%}) — the serve step "
+        f"spends that fraction of its FLOPs on masked-out tokens. Resize "
+        f"serve.row_tokens / serve.rows to the traffic's token "
+        f"distribution, or tighten the serve.min_px..max_px envelope."
+    )
+    warnings.warn(msg, stacklevel=stacklevel + 1)
+    return msg

@@ -1,0 +1,98 @@
+"""JAX backbone parameter tree -> the port's ``state_dict``.
+
+The JAX package's tree (nested dicts of arrays, e.g. from
+``flax.core.unfreeze(params)`` turned into numpy) is renamed to Meta's
+``state_dict`` names, which the port's modules carry: the key table of
+``dinov3_tpu/interop/torch_convert.py`` read in reverse. Transposes:
+Dense kernels [in, out] -> [out, in] (qkv [D, 3D] -> [3D, D]), the patch
+kernel [p, p, C, D] -> [D, C, p, p], and the mask token [D] -> [1, D].
+Both the unscanned (``blocks_N``) and the scanned (``blocks/block`` with
+[L, ...] stacked leaves) trees are taken.
+"""
+
+from __future__ import annotations
+
+import re
+from typing import Any, Mapping
+
+import numpy as np
+import torch
+
+_BLOCK_LEAF = {
+    ("attn", "qkv_kernel"): ("attn.qkv.weight", True),
+    ("attn", "qkv_bias"): ("attn.qkv.bias", False),
+    ("attn", "proj_kernel"): ("attn.proj.weight", True),
+    ("attn", "proj_bias"): ("attn.proj.bias", False),
+}
+
+
+def _flatten(tree: Mapping, prefix=()) -> dict[tuple, Any]:
+    out = {}
+    for k, v in tree.items():
+        if isinstance(v, Mapping):
+            out.update(_flatten(v, prefix + (str(k),)))
+        else:
+            out[prefix + (str(k),)] = v
+    return out
+
+
+def _block_key(path: tuple) -> tuple[str, bool]:
+    """Path inside one block -> (Meta name, transpose?)."""
+    if path in _BLOCK_LEAF:
+        return _BLOCK_LEAF[path]
+    *mods, leaf = path
+    name = ".".join(mods)
+    if leaf == "scale":  # norm1 / norm2
+        return f"{name}.weight", False
+    if leaf == "kernel":  # mlp.fc1 / mlp.fc2 / mlp.w1..w3
+        return f"{name}.weight", True
+    return f"{name}.{leaf}", False  # biases, ls1/ls2 gamma
+
+
+def _top_key(path: tuple) -> tuple[str, str]:
+    """Top-level path -> (Meta name, how to reshape)."""
+    if path == ("patch_embed", "kernel"):
+        return "patch_embed.proj.weight", "patch"
+    if path == ("patch_embed", "bias"):
+        return "patch_embed.proj.bias", "none"
+    if path == ("mask_token",):
+        return "mask_token", "row"
+    *mods, leaf = path
+    if leaf == "scale":  # norm / cls_norm / local_cls_norm
+        return ".".join(mods) + ".weight", "none"
+    return ".".join(path), "none"
+
+
+def state_dict_from_jax(params: Mapping) -> dict[str, torch.Tensor]:
+    """Nested JAX backbone params -> flat Meta-named torch ``state_dict``."""
+    out: dict[str, torch.Tensor] = {}
+
+    def put(name, value, transpose=False):
+        a = np.asarray(value)
+        if transpose:
+            a = a.T
+        a = np.array(a, order="C")  # a writable, contiguous copy
+        if a.dtype.name == "bfloat16":  # numpy has no bf16: move the bits
+            out[name] = torch.from_numpy(a.view(np.uint16)).view(torch.bfloat16)
+        else:
+            out[name] = torch.from_numpy(a)
+
+    for path, value in _flatten(params).items():
+        m = re.fullmatch(r"blocks_(\d+)", path[0])
+        if m:
+            name, tr = _block_key(path[1:])
+            put(f"blocks.{m.group(1)}.{name}", value, tr)
+        elif path[:2] == ("blocks", "block"):
+            name, tr = _block_key(path[2:])
+            stacked = np.asarray(value)
+            for i in range(stacked.shape[0]):
+                put(f"blocks.{i}.{name}", stacked[i], tr)
+        else:
+            name, how = _top_key(path)
+            a = np.asarray(value)
+            if how == "patch":
+                a = a.transpose(3, 2, 0, 1)  # [p, p, C, D] -> [D, C, p, p]
+            elif how == "row":
+                a = a.reshape(1, -1)
+            put(name, a)
+    return out

@@ -1,0 +1,69 @@
+"""Model factories from config (``dinov3_tpu/models/__init__.py``), ViT
+only: ConvNeXt is not ported yet."""
+
+from __future__ import annotations
+
+import torch
+
+from dinov3_tpu_torch.models.vision_transformer import (
+    ARCHS,
+    DinoVisionTransformer,
+    vit_large,
+    vit_test,
+)
+from dinov3_tpu_torch.ops.common import Policy, resolve_device
+
+
+def backbone_kwargs_from_cfg(cfg) -> dict:
+    """``student`` section -> ``DinoVisionTransformer`` kwargs for the
+    deterministic (teacher/serve) forward: drop path, RoPE coordinate
+    augmentation and the TPU execution options (remat, scan, sharding,
+    kernel dispatch thresholds) do not apply to it."""
+    s = cfg.student
+    policy = Policy.from_cfg(cfg.compute_precision)
+    return dict(
+        patch_size=s.patch_size,
+        layerscale_init=s.layerscale,
+        ffn_layer=s.ffn_layer,
+        ffn_ratio=s.ffn_ratio,
+        qkv_bias=s.qkv_bias,
+        proj_bias=s.proj_bias,
+        ffn_bias=s.ffn_bias,
+        norm_layer=s.norm_layer,
+        n_storage_tokens=s.n_storage_tokens,
+        mask_k_bias=s.mask_k_bias,
+        untie_cls_and_patch_norms=s.untie_cls_and_patch_norms,
+        untie_global_and_local_cls_norm=s.untie_global_and_local_cls_norm,
+        in_chans=s.in_chans,
+        pos_embed_type=s.pos_embed_type,
+        pos_embed_rope_base=s.pos_embed_rope_base,
+        pos_embed_rope_min_period=s.pos_embed_rope_min_period,
+        pos_embed_rope_max_period=s.pos_embed_rope_max_period,
+        pos_embed_rope_normalize_coords=s.pos_embed_rope_normalize_coords,
+        pos_embed_rope_dtype=s.pos_embed_rope_dtype,
+        dtype=policy.compute_dtype,
+    )
+
+
+def build_backbone(cfg, *, device="cuda", seed: int = 0) -> DinoVisionTransformer:
+    """The configured ViT with a seeded random init, in the policy's
+    parameter dtype, on ``device``. The init is drawn on the CPU from a
+    ``torch.Generator`` seeded with ``seed``, so the weights are the same
+    whatever the device."""
+    dev = resolve_device(device)
+    arch = cfg.student.arch
+    if arch.startswith("convnext"):
+        raise NotImplementedError(
+            f"student.arch={arch!r}: ConvNeXt is not ported yet (tail slice)")
+    if arch not in ARCHS:
+        raise ValueError(f"unknown arch {arch!r}; available: {sorted(ARCHS)}")
+    model = ARCHS[arch](**backbone_kwargs_from_cfg(cfg))
+    model.init_weights(torch.Generator().manual_seed(seed))
+    policy = Policy.from_cfg(cfg.compute_precision)
+    return model.to(device=dev, dtype=policy.param_dtype).eval()
+
+
+__all__ = [
+    "ARCHS", "DinoVisionTransformer", "backbone_kwargs_from_cfg",
+    "build_backbone", "vit_large", "vit_test",
+]
