@@ -5,7 +5,7 @@
 
 Builds the hand-written CUDA kernels from ``dinov3_tpu_torch/csrc/``
 (into ``build/kernels/``, one ``nvcc`` per source, all in parallel) and
-drives the port's serve path on the card:
+drives the port's serve path and its training step on the card:
 
 A. environment: torch, CUDA and nvcc versions, the card's name and power
    limit, the kernel build time;
@@ -20,7 +20,21 @@ C. the serve path at ViT-L/16 full width (``configs/train/vitl16_im1k.yaml``:
    features, and the launch counts of both kernels (24 flash-attention
    and 50 LayerNorm launches a pack);
 D. one pack through a 2-block model at ViT-L width on the card (kernels)
-   and on the CPU (plain versions), same weights, compared.
+   and on the CPU (plain versions), same weights, compared;
+B'. the backward kernels K2, K3 (flash attention dQ, dK/dV) and K5
+   (LayerNorm backward) against their plain versions at the training
+   step's shapes and at edge shapes, each run twice for bitwise
+   repeatability, with times, bounds and library yardsticks;
+E. the SSL training step at ViT-L/16 full width and depth
+   (``configs/train/vitl16_im1k.yaml`` at 32 images, materialized
+   targets) through ``build_train_setup`` and its ``step_fn``: a warm-up
+   step, then 5 timed steps with every loss finite, ms per step, img/s,
+   peak memory and the launches of K1-K5 pinned per step, and one step
+   profiled by kernel class;
+F. one training step of a 2-block ViT-L-width model (4096 prototypes,
+   4 images, LayerScale 1) on the card and on the CPU from the same
+   weights, batch and drop-path plan: loss terms, gradient norms and the
+   updated student compared.
 
 Prints the kernel table as one JSON line, the card's name and power
 limit, and as its last line ``{"ok": true, "device": {...}}``. Any
@@ -31,6 +45,7 @@ before doing anything.
 from __future__ import annotations
 
 import copy
+import gc
 import json
 import os
 import subprocess
@@ -53,6 +68,30 @@ N_REQUESTS = 64
 
 class SmokeFailure(RuntimeError):
     pass
+
+
+def _kernels() -> dict:
+    from dinov3_tpu_torch.ops.flash_attention import (
+        FLASH_BWD_DKV,
+        FLASH_BWD_DQ,
+        FLASH_FWD,
+    )
+    from dinov3_tpu_torch.ops.fused_norm import LAYERNORM_BWD, LAYERNORM_FWD
+
+    return {"K1": FLASH_FWD, "K2": FLASH_BWD_DQ, "K3": FLASH_BWD_DKV,
+            "K4": LAYERNORM_FWD, "K5": LAYERNORM_BWD}
+
+
+KERNELS: dict = {}  # filled by main(): the CudaKernel of K1-K5
+
+
+def reset_counts() -> None:
+    for k in KERNELS.values():
+        k.launches = 0
+
+
+def read_counts() -> dict:
+    return {name: k.launches for name, k in KERNELS.items()}
 
 
 def check(ok: bool, msg: str) -> None:
@@ -102,8 +141,6 @@ def phase_a():
     import torch
 
     from dinov3_tpu_torch.ops._cuda import _nvcc, build_kernels
-    from dinov3_tpu_torch.ops.flash_attention import FLASH_FWD
-    from dinov3_tpu_torch.ops.fused_norm import LAYERNORM_FWD
 
     print(f"[A] python {sys.version.split()[0]}  torch {torch.__version__}  "
           f"cuda {torch.version.cuda}  card {torch.cuda.get_device_name(0)}")
@@ -112,10 +149,10 @@ def phase_a():
     print(f"[A] nvcc: {nvcc[-1]}")
     print(f"[A] nvidia-smi: {smi_line()}")
     t0 = time.perf_counter()
-    built = build_kernels([FLASH_FWD, LAYERNORM_FWD])
+    built = build_kernels(list(KERNELS.values()))
     print(f"[A] kernel build {time.perf_counter() - t0:.1f} s wall "
           f"(rebuilt: {sorted(built) or 'none, cached'})")
-    for k in (FLASH_FWD, LAYERNORM_FWD):
+    for k in KERNELS.values():
         regs = [ln.strip() for ln in k.build_log.splitlines()
                 if "registers" in ln or "spill" in ln]
         print(f"[A] {k.name}: " + " | ".join(regs))
@@ -138,6 +175,19 @@ def serve_pack_seg(cfg, seed: int = 0):
     return batcher.next_pack().planes["seg"].copy()
 
 
+def seg_pairs(seg) -> int:
+    """Token pairs that meet: the sum over rows and segments of count^2."""
+    return sum(int(c) ** 2 for row in seg
+               for c in np.unique(row, return_counts=True)[1])
+
+
+def bound(nbytes: float, flops: float, flop_s: float) -> tuple[float, str]:
+    """Least time in ms: bytes over the memory rate or operations over the
+    peak rate, whichever is larger, and which one it was."""
+    t_bytes, t_ops = nbytes / HBM_BYTES_S, flops / flop_s
+    return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes > t_ops else "operations")
+
+
 def flash_bound(seg, B, N, H, D) -> tuple[float, str]:
     """Least time for attention on these inputs: each input byte read
     once and each output written once, against the tensor-core work the
@@ -147,11 +197,8 @@ def flash_bound(seg, B, N, H, D) -> tuple[float, str]:
         pairs = B * N * N
     else:
         nbytes += seg.size * 4
-        pairs = sum(int(c) ** 2 for row in seg
-                    for c in np.unique(row, return_counts=True)[1])
-    flops = 4 * D * H * pairs
-    t_bytes, t_ops = nbytes / HBM_BYTES_S, flops / BF16_TC_FLOP_S
-    return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes > t_ops else "operations")
+        pairs = seg_pairs(seg)
+    return bound(nbytes, 4 * D * H * pairs, BF16_TC_FLOP_S)
 
 
 def check_flash(q, k, v, seg, label, time_it=False) -> dict:
@@ -218,10 +265,8 @@ def check_layernorm(x, s, b, label, time_it=False) -> dict:
         row["library_ms"] = cuda_ms(
             lambda: F.layer_norm(x, (D,), s, b, eps=1e-6), 50)
         nbytes = 2 * R * D * x.element_size() + 2 * D * s.element_size()
-        flops = 8 * R * D  # sums, centring, square, scale, shift
-        t_bytes, t_ops = nbytes / HBM_BYTES_S, flops / FP32_FLOP_S
-        row["bound_ms"] = max(t_bytes, t_ops) * 1e3
-        row["bound_by"] = "bytes" if t_bytes > t_ops else "operations"
+        # sums, centring, square, scale, shift: ~8 operations an element
+        row["bound_ms"], row["bound_by"] = bound(nbytes, 8 * R * D, FP32_FLOP_S)
         print(f"[B] K4 {label}: kernel {row['ms']:.4f} ms  plain "
               f"{row['plain_ms']:.4f} ms  library {row['library_ms']:.4f} ms  "
               f"bound {row['bound_ms']:.4f} ms ({row['bound_by']})")
@@ -269,7 +314,7 @@ def phase_b(cfg) -> dict:
     check_layernorm(randn(1003, 1024), s, b, "ragged rows [1003, 1024] bf16")
     check_layernorm(randn(77, 1024, dtype=torch.float32),
                     s.float(), b.float(), "[77, 1024] fp32")
-    return {"flash": k1, "layernorm": k4}
+    return {"K1": k1, "K4": k4}
 
 
 # ---------------------------------------------------------------- phase C
@@ -283,11 +328,9 @@ def serve_requests(engine, images, first_id: int = 0) -> dict:
     return {r.request_id: r for r in out}
 
 
-def phase_c(cfg) -> tuple[dict, object]:
+def phase_c(cfg) -> tuple[dict, int]:
     import torch
 
-    from dinov3_tpu_torch.ops.flash_attention import FLASH_FWD
-    from dinov3_tpu_torch.ops.fused_norm import LAYERNORM_FWD
     from dinov3_tpu_torch.serve import build_serve_engine
 
     t0 = time.perf_counter()
@@ -306,13 +349,12 @@ def phase_c(cfg) -> tuple[dict, object]:
     serve_requests(engine, images[:4], first_id=10_000)
     torch.cuda.synchronize()
 
-    FLASH_FWD.launches = 0
-    LAYERNORM_FWD.launches = 0
+    reset_counts()
     packs0 = engine.packs_run
     t0 = time.perf_counter()
     responses = serve_requests(engine, images)
     wall = time.perf_counter() - t0
-    launches = {"flash": FLASH_FWD.launches, "layernorm": LAYERNORM_FWD.launches}
+    launches = read_counts()
     packs = engine.packs_run - packs0
     print(f"[C] served {len(responses)} requests in {packs} packs: "
           f"{wall * 1e3:.1f} ms, {N_REQUESTS / wall:.2f} img/s, "
@@ -326,10 +368,8 @@ def phase_c(cfg) -> tuple[dict, object]:
               and np.isfinite(r.cls_feature).all()
               and np.isfinite(r.pooled_patch_feature).all(),
               f"request {r.request_id}: bad features")
-    check(launches["flash"] == 24 * packs,
-          f"flash-attention launches {launches['flash']} != 24 x {packs}")
-    check(launches["layernorm"] == 50 * packs,
-          f"LayerNorm launches {launches['layernorm']} != 50 x {packs}")
+    want = {"K1": 24 * packs, "K2": 0, "K3": 0, "K4": 50 * packs, "K5": 0}
+    check(launches == want, f"serve launches {launches} != {want}")
 
     # packed vs per-image features through the model's own forward on the
     # card. Tolerance 2^-5 of the feature magnitude (about 8 bf16 ulps):
@@ -358,7 +398,7 @@ def phase_c(cfg) -> tuple[dict, object]:
           f"{worst:.3f} of the tolerance")
     profile_pack(engine, make_mix(np.random.default_rng(3), MIXED_RAGGED,
                                   48, L.patch_size))
-    return launches, engine
+    return launches, packs
 
 
 def profile_pack(engine, images) -> None:
@@ -487,6 +527,415 @@ def phase_d(cfg) -> None:
           f"{worst:.3f} of the tolerance")
 
 
+# ---------------------------------------------------------------- phase B'
+
+def train_attention_seg(batch_size: int = 32, rate: float = 0.3):
+    """The seg plane [keep, 197] one student block's attention sees at
+    ViT-L/16 with ``batch_size`` images: the packed layout's segment ids
+    (2B global rows, 5 local crops of 37 tokens a packed row) gathered at
+    the kept rows of a drop-path subset from the port's own plan."""
+    from dinov3_tpu_torch.ops.packing import make_packed_layout, packed_segment_ids
+    from dinov3_tpu_torch.rng import packed_pass_plan, step_generator
+
+    layout = make_packed_layout(n_global_rows=2 * batch_size,
+                                n_local=8 * batch_size, seq_global=197,
+                                seq_local=37, n_prefix=1)
+    seg = packed_segment_ids(layout)
+    plan = packed_pass_plan(step_generator(0, 0), 24, layout.rows_total, rate)
+    return seg[plan["drop_path"]["idx"][0, 0].numpy()]
+
+
+def check_flash_bwd(q, k, v, seg, label, time_it=False) -> dict:
+    """K2 and K3 against ``attention_bwd_plain`` on the kernels' own O and
+    LSE; each run twice, bitwise. Tolerance 2^-6 of the gradient's largest
+    magnitude in bf16 (P and dS are rounded to bf16 before the second
+    products, and the result is written in bf16), 1e-4 of it in fp32."""
+    import torch
+    import torch.nn.functional as F
+
+    from dinov3_tpu_torch.ops.flash_attention import (
+        attention_bwd_plain,
+        flash_bwd_dkv,
+        flash_bwd_dq,
+        flash_fwd,
+    )
+
+    g = torch.Generator().manual_seed(q.shape[1])
+    do = torch.randn(q.shape, generator=g).to(q.device, q.dtype)
+    out, lse = flash_fwd(q, k, v, seg)
+    runs = []
+    for _ in range(2):
+        dq, delta = flash_bwd_dq(q, k, v, out, lse, do, seg)
+        dk, dv = flash_bwd_dkv(q, k, v, lse, delta, do, seg)
+        runs.append((dq, dk, dv))
+    torch.cuda.synchronize()
+    check(all(torch.equal(a, b) for a, b in zip(*runs)),
+          f"K2/K3 {label}: two runs differ")
+    want = attention_bwd_plain(q, k, v, out, lse, do, seg)
+    row = {}
+    for name, got, w in zip(("dq", "dk", "dv"), runs[0], want):
+        err = (got.float() - w.float()).abs().max().item()
+        mag = w.float().abs().max().item()
+        tol = (2.0 ** -6 if q.dtype == torch.bfloat16 else 1e-4) * max(mag, 1e-6)
+        print(f"[B'] K2/K3 {label}: max|{name} - plain| {err:.3e} (tol {tol:.3e})")
+        check(np.isfinite(err) and err <= tol, f"K2/K3 {label} {name}: {err}")
+        row[name] = err
+    result = {"K2": {"max_abs_err": row["dq"]},
+              "K3": {"max_abs_err": max(row["dk"], row["dv"])}}
+    if time_it:
+        B, N, H, D = q.shape
+        pairs = B * N * N if seg is None else seg_pairs(seg.cpu().numpy())
+        elt = B * N * H * D * q.element_size()
+        rowb = B * H * N * 4
+        segb = 0 if seg is None else seg.numel() * 4
+        k2 = result["K2"]
+        k2["ms"] = cuda_ms(lambda: flash_bwd_dq(q, k, v, out, lse, do, seg), 20)
+        # K2 reads q, k, v, O, dO and LSE, writes dQ and Delta; 3 products
+        k2["bound_ms"], k2["bound_by"] = bound(
+            6 * elt + 2 * rowb + segb, 6 * D * H * pairs, BF16_TC_FLOP_S)
+        k3 = result["K3"]
+        k3["ms"] = cuda_ms(lambda: flash_bwd_dkv(q, k, v, lse, delta, do, seg), 20)
+        # K3 reads q, k, v, dO, LSE and Delta, writes dK and dV; 4 products
+        k3["bound_ms"], k3["bound_by"] = bound(
+            6 * elt + 2 * rowb + segb, 8 * D * H * pairs, BF16_TC_FLOP_S)
+        plain = cuda_ms(lambda: attention_bwd_plain(q, k, v, out, lse, do, seg), 3, 1)
+        # yardstick: SDPA's backward with the boolean block mask, timed as
+        # fwd + bwd minus fwd; it computes dQ, dK and dV together
+        qt, kt, vt = (t.transpose(1, 2).detach().requires_grad_() for t in (q, k, v))
+        mask = None if seg is None else (seg[:, None, :, None] == seg[:, None, None, :])
+        dot = do.transpose(1, 2)
+
+        def fwd():
+            return F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask)
+
+        def fwd_bwd():
+            torch.autograd.grad(fwd(), (qt, kt, vt), dot)
+
+        # the median of three (fwd + bwd) - fwd pairs: one pair alone
+        # varied by 2x between runs
+        lib = float(np.median([cuda_ms(fwd_bwd, 20) - cuda_ms(fwd, 20)
+                               for _ in range(3)]))
+        for r in (k2, k3):
+            r["plain_ms"], r["library_ms"] = plain, lib
+        print(f"[B'] K2 {label}: kernel {k2['ms']:.4f} ms  bound {k2['bound_ms']:.4f} ms "
+              f"({k2['bound_by']});  K3: kernel {k3['ms']:.4f} ms  bound "
+              f"{k3['bound_ms']:.4f} ms ({k3['bound_by']});  plain backward "
+              f"{plain:.4f} ms, library backward (dQ+dK+dV) {lib:.4f} ms")
+    return result
+
+
+def check_layernorm_bwd(x, s, label, time_it=False) -> dict:
+    """K5 against ``layernorm_bwd_plain``, run twice, bitwise. Tolerances:
+    dx one bf16 ulp plus 2^-8 of its row's largest magnitude in bf16 (both
+    compute in fp32 and round once, the row sums differ in order), 1e-5 in
+    fp32; dscale and dbias 1e-4 of their magnitude (fp32 sums over the
+    rows in other orders)."""
+    import torch
+    import torch.nn.functional as F
+
+    from dinov3_tpu_torch.ops.fused_norm import layernorm_bwd, layernorm_bwd_plain
+
+    g = torch.Generator().manual_seed(x.shape[0])
+    dy = torch.randn(x.shape, generator=g).to(x.device, x.dtype)
+    runs = [layernorm_bwd(x, s, dy) for _ in range(2)]
+    torch.cuda.synchronize()
+    check(all(torch.equal(a, b) for a, b in zip(*runs)), f"K5 {label}: two runs differ")
+    dx, ds, db = runs[0]
+    wdx, wds, wdb = layernorm_bwd_plain(x, s, dy)
+    err = (dx.float() - wdx.float()).abs()
+    if x.dtype == torch.bfloat16:
+        mag = wdx.float().abs()
+        ulp = torch.exp2(torch.floor(torch.log2(mag.clamp(min=1e-30))) - 7)
+        tol = ulp + 2.0 ** -8 * mag.amax(dim=-1, keepdim=True)
+    else:
+        tol = torch.full_like(err, 1e-5)
+    ratio = (err / tol).max().item()
+    p_err = max((ds.float() - wds.float()).abs().max().item(),
+                (db.float() - wdb.float()).abs().max().item())
+    p_tol = 1e-4 * max(wds.float().abs().max().item(), wdb.float().abs().max().item())
+    print(f"[B'] K5 {label}: max|dx - plain| {err.max().item():.3e} "
+          f"({ratio:.3f} of its tolerance), max|dscale, dbias - plain| "
+          f"{p_err:.3e} (tol {p_tol:.3e})")
+    check(ratio <= 1.0, f"K5 {label}: dx disagrees")
+    check(p_err <= p_tol, f"K5 {label}: dscale/dbias disagree")
+    row = {"max_abs_err": max(err.max().item(), p_err)}
+    if time_it:
+        R, D = x.shape
+        row["ms"] = cuda_ms(lambda: layernorm_bwd(x, s, dy), 50)
+        row["plain_ms"] = cuda_ms(lambda: layernorm_bwd_plain(x, s, dy), 10)
+        # F.layer_norm takes scale and bias in x's dtype
+        xl = x.detach().requires_grad_()
+        sl = s.detach().to(x.dtype).requires_grad_()
+        bl = torch.zeros_like(sl, requires_grad=True)
+        y = F.layer_norm(xl, (D,), sl, bl, eps=1e-6)
+        row["library_ms"] = cuda_ms(
+            lambda: torch.autograd.grad(y, (xl, sl, bl), dy, retain_graph=True), 20)
+        # reads x and g, writes dx (scale, dscale and dbias are [D]);
+        # about 14 fp32 operations an element
+        nbytes = 3 * R * D * x.element_size() + 3 * D * s.element_size()
+        row["bound_ms"], row["bound_by"] = bound(nbytes, 14 * R * D, FP32_FLOP_S)
+        print(f"[B'] K5 {label}: kernel {row['ms']:.4f} ms  plain "
+              f"{row['plain_ms']:.4f} ms  library {row['library_ms']:.4f} ms  "
+              f"bound {row['bound_ms']:.4f} ms ({row['bound_by']})")
+    return row
+
+
+def phase_b_bwd() -> dict:
+    import torch
+
+    dev = torch.device("cuda")
+    g = torch.Generator().manual_seed(1)
+    bf16 = torch.bfloat16
+
+    def randn(*shape, dtype=bf16):
+        return torch.randn(*shape, generator=g).to(dev, dtype)
+
+    # K2/K3 at one student block's attention: [81 x 16, 197, 64] bf16, the
+    # seg ids of the packed B=32 layout after a drop-path subset, q, k, v
+    # as the qkv projection lays them out (v a strided view)
+    seg = torch.from_numpy(train_attention_seg()).to(dev)
+    R, N = seg.shape
+    H, D = 16, 64
+    qkv = randn(R, N, 3 * H * D)
+    q, k, v = (qkv[..., i * H * D:(i + 1) * H * D].reshape(R, N, H, D)
+               for i in range(3))
+    rows = check_flash_bwd(q.contiguous(), k.contiguous(), v, seg,
+                           f"train block [{R}x{H}, {N}, {D}] bf16 seg",
+                           time_it=True)
+    check_flash_bwd(randn(4, 201, 6, 64), randn(4, 201, 6, 64),
+                    randn(4, 201, 6, 64), None, "ragged N=201 [4x6, 201, 64] bf16")
+    s128 = torch.zeros(2, 333, dtype=torch.int32, device=dev)
+    s128[:, 150:] = 1
+    s128[:, 320:] = -1
+    check_flash_bwd(randn(2, 333, 8, 128), randn(2, 333, 8, 128),
+                    randn(2, 333, 8, 128), s128, "head_dim 128 [2x8, 333, 128] bf16 seg")
+    f32 = torch.float32
+    check_flash_bwd(randn(2, 150, 4, 64, dtype=f32), randn(2, 150, 4, 64, dtype=f32),
+                    randn(2, 150, 4, 64, dtype=f32), seg[-2:, :150].contiguous(),
+                    "[2x4, 150, 64] fp32 seg")
+    pad = seg[-3:].clone()
+    pad[0] = -1  # one row of nothing but pad tokens
+    check_flash_bwd(randn(3, N, 4, 64), randn(3, N, 4, 64), randn(3, N, 4, 64),
+                    pad, f"all-pad row [3x4, {N}, 64] bf16")
+    # K5 at the packed student rows: [116 x 197, 1024] bf16, fp32 scale
+    x = randn(116 * 197, 1024) * 3 + 1
+    s = (torch.randn(1024, generator=g) * 0.5 + 1).to(dev)
+    rows["K5"] = check_layernorm_bwd(x, s, "packed rows [22852, 1024] bf16",
+                                     time_it=True)
+    check_layernorm_bwd(randn(1003, 1024), s, "ragged rows [1003, 1024] bf16")
+    check_layernorm_bwd(randn(77, 96, dtype=f32), s[:96].contiguous(),
+                        "[77, 96] fp32")
+    return rows
+
+
+# ---------------------------------------------------------------- phase E
+
+TRAIN_B = 32
+TRAIN_OVERRIDES = [f"train.batch_size_per_device={TRAIN_B}",
+                   "loss.streaming_targets=false", "data.backend=synthetic"]
+# launches of each kernel in one step of the ViT-L/16 slice: K1 24 teacher
+# + 24 student blocks; K4 two per block in each backbone plus the final
+# norm (teacher 49) and the final and local-CLS norms (student 50); the
+# backward kernels once per student launch of their forward
+STEP_LAUNCHES = {"K1": 48, "K2": 24, "K3": 24, "K4": 99, "K5": 50}
+LOSS_KEYS = ("dino_local_crops_loss", "dino_global_crops_loss", "koleo_loss",
+             "ibot_loss", "total_loss")
+
+
+def phase_e() -> tuple[dict, dict]:
+    import torch
+
+    from dinov3_tpu_torch.configs import load_config
+    from dinov3_tpu_torch.data import make_synthetic_batch
+    from dinov3_tpu_torch.train import build_train_setup, put_batch
+
+    cfg = load_config(os.path.join(REPO, "configs", "train", "vitl16_im1k.yaml"),
+                      TRAIN_OVERRIDES, n_devices=1)
+    batch = make_synthetic_batch(cfg, TRAIN_B, seed=0)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    setup = build_train_setup(cfg, batch, device="cuda", seed=0)
+    meta = setup.meta
+    bb = meta.student["backbone"]
+    n_params = sum(p.numel() for p in meta.student.parameters())
+    print(f"[E] ViT-L/16 SSL step: {bb.n_blocks} blocks, width {bb.embed_dim}, "
+          f"{bb.num_heads} heads, {n_params} student parameters (fp32 masters), "
+          f"{cfg.dino.head_n_prototypes} prototypes, B={TRAIN_B}, lr "
+          f"{cfg.optim.lr:.3e}; built in {time.perf_counter() - t0:.1f} s")
+    check(bb.n_blocks == 24 and bb.embed_dim == 1024 and bb.num_heads == 16
+          and cfg.crops.local_crops_number == 8, "not the ViT-L/16 slice")
+    dbatch = put_batch(batch, "cuda")  # data loading is set-up
+    state = setup.state
+    state, m = setup.step_fn(state, dbatch, setup.scalars(state.step))  # warm-up
+    torch.cuda.synchronize()
+    print(f"[E] warm-up step: " + ", ".join(f"{k} {m[k]:.4f}" for k in LOSS_KEYS))
+    reset_counts()
+    times = []
+    gc_ms = []  # Python garbage collections during the timed steps, by clock
+    gc_start = [0.0]
+
+    def on_gc(phase, info):
+        if phase == "start":
+            gc_start[0] = time.perf_counter()
+        else:
+            gc_ms.append((info["generation"], (time.perf_counter() - gc_start[0]) * 1e3))
+
+    gc.callbacks.append(on_gc)
+    for _ in range(5):
+        gc_ms.clear()
+        alloc0 = torch.cuda.memory_stats()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, m = setup.step_fn(state, dbatch, setup.scalars(state.step))
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+        alloc = torch.cuda.memory_stats()
+        check(all(np.isfinite(m[k]) for k in LOSS_KEYS), f"non-finite loss {m}")
+        print(f"[E] step {state.step - 1}: {times[-1]:.1f} ms, "
+              f"{TRAIN_B / times[-1] * 1e3:.2f} img/s; " + ", ".join(
+                  f"{k} {m[k]:.4f}" for k in LOSS_KEYS) + "; grad norms " +
+              ", ".join(f"{k[10:]} {v:.3e}" for k, v in m.items()
+                        if k.startswith("grad_norm/")) +
+              "; allocator " + ", ".join(
+                  f"{k} {alloc.get(k, 0) - alloc0.get(k, 0)}" for k in
+                  ("num_device_alloc", "num_device_free", "num_alloc_retries")) +
+              "; Python gc " + ", ".join(f"gen{g} {ms:.1f} ms" for g, ms in gc_ms))
+    gc.callbacks.remove(on_gc)
+    launches = read_counts()
+    per_step = {k: v / 5 for k, v in launches.items()}
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    print(f"[E] 5 steps: median {np.median(times):.1f} ms, mean {np.mean(times):.1f} ms (min {min(times):.1f}, max "
+          f"{max(times):.1f}), {TRAIN_B / np.mean(times) * 1e3:.2f} img/s, peak "
+          f"memory {peak:.2f} GiB; launches per step {per_step}")
+    check(per_step == STEP_LAUNCHES, f"launches per step {per_step} != {STEP_LAUNCHES}")
+    profile_step(setup, state, dbatch)
+    return launches, {"ms": float(np.mean(times)), "peak_gib": peak}
+
+
+def profile_step(setup, state, dbatch) -> None:
+    """Device time by kernel class over one training step, from
+    torch.profiler device events (the tracer warmed up first); the wall
+    time is that of the recorded step, tracer included."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    activities = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
+    with profile(activities=activities):
+        torch.ones(1, device="cuda").sum()
+    torch.cuda.synchronize()
+    with profile(activities=activities) as prof:
+        t0 = time.perf_counter()
+        setup.step_fn(state, dbatch, setup.scalars(state.step))
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    events = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    if not events:
+        print("[E] profile: no device events recorded (device time not measured)")
+        return
+    classes = (("K1 flash_fwd", "flash_fwd"), ("K2 flash_bwd_dq", "flash_bwd_dq"),
+               ("K3 flash_bwd_dkv", "flash_bwd_dkv"),
+               ("K4 layernorm_fwd", "layernorm_fwd"),
+               ("K5 layernorm_bwd", "layernorm_bwd"))
+    buckets = {name: 0.0 for name, _ in classes}
+    buckets.update({"gemm": 0.0, "memcpy": 0.0, "elementwise/other": 0.0})
+    by_name: dict = {}
+    for e in events:
+        t = e.time_range.elapsed_us() / 1e3
+        low = e.name.lower()
+        key = next((name for name, tag in classes if tag in low), None)
+        if key is None:
+            if any(w in low for w in ("gemm", "xmma", "cutlass", "nvjet")):
+                key = "gemm"
+            elif "memcpy" in low or "memset" in low:
+                key = "memcpy"
+            else:
+                key = "elementwise/other"
+        buckets[key] += t
+        n, tt = by_name.get(e.name, (0, 0.0))
+        by_name[e.name] = (n + 1, tt + t)
+    busy = sum(buckets.values())
+    print(f"[E] profile of one step: wall {wall_ms:.2f} ms, device busy {busy:.2f} ms, "
+          f"idle share {max(0.0, 1 - busy / wall_ms):.3f}; " + ", ".join(
+              f"{k} {v:.2f} ms" for k, v in buckets.items()))
+    for name, (n, t) in sorted(by_name.items(), key=lambda r: -r[1][1])[:12]:
+        print(f"[E]   {t:8.3f} ms  x{n:<4d} {name[:100]}")
+
+
+# ---------------------------------------------------------------- phase F
+
+def phase_f() -> None:
+    """One step of a 2-block ViT-L-width model on the card and on the CPU,
+    same weights (drawn on the CPU from one seed), batch and drop-path
+    plan, at a mid-schedule iteration where lr is at its peak. LayerScale
+    is 1 so the blocks reach the losses."""
+    import torch
+
+    from dinov3_tpu_torch.configs import load_config
+    from dinov3_tpu_torch.data import make_synthetic_batch
+    from dinov3_tpu_torch.rng import packed_pass_plan, step_generator
+    from dinov3_tpu_torch.train import build_train_setup
+    from dinov3_tpu_torch.train.train_step import packed_layout
+
+    B = 4
+    cfg = load_config(
+        os.path.join(REPO, "configs", "train", "vitl16_im1k.yaml"),
+        [f"train.batch_size_per_device={B}", "loss.streaming_targets=false",
+         "student.layerscale=1.0", "dino.head_n_prototypes=4096",
+         "ibot.head_n_prototypes=4096"], n_devices=1)
+    batch = make_synthetic_batch(cfg, B, seed=1)
+    it = cfg.optim.warmup_epochs * cfg.train.OFFICIAL_EPOCH_LENGTH
+    plan = packed_pass_plan(step_generator(0, it), 2,
+                            packed_layout(cfg, batch).rows_total,
+                            cfg.student.drop_path_rate)
+    check(bool(plan), "[F] no drop-path plan")
+    results = {}
+    for dev in ("cuda", "cpu"):
+        setup = build_train_setup(cfg, batch, device=dev, seed=2, n_blocks=2)
+        state = setup.state
+        state.step = state.opt_state.count = it
+        before = {n: p.detach().cpu().clone()
+                  for n, p in setup.meta.student.named_parameters()}
+        t0 = time.perf_counter()
+        state, m = setup.step_fn(state, batch, setup.scalars(it), plan=plan)
+        print(f"[F] one step on {dev}: {(time.perf_counter() - t0) * 1e3:.1f} ms; "
+              + ", ".join(f"{k} {m[k]:.4f}" for k in LOSS_KEYS))
+        after = {n: p.detach().cpu() for n, p in setup.meta.student.named_parameters()}
+        results[dev] = (m, before, after)
+    (mc, before, after_c), (mp, before_p, after_p) = results["cuda"], results["cpu"]
+    check(all(torch.equal(before[n], before_p[n]) for n in before),
+          "card and CPU started from other weights")
+    # losses and gradient norms: 2^-5 relative. Both sides compute in bf16,
+    # with matmul sums in other orders, and K1-K3 round the attention
+    # probabilities and dS to bf16 where the plain versions keep fp32
+    worst = 0.0
+    for k in LOSS_KEYS + tuple(k for k in mc if k.startswith("grad_norm/")):
+        rel = abs(mc[k] - mp[k]) / max(abs(mp[k]), 1e-6)
+        worst = max(worst, rel)
+        check(rel <= 2.0 ** -5, f"[F] {k}: card {mc[k]:.6g} vs CPU {mp[k]:.6g}")
+    print(f"[F] card vs CPU: loss terms and gradient norms within {worst:.3e} "
+          f"relative (tol {2.0 ** -5:.3e})")
+    # updated student: from fresh moments Adam moves each entry by
+    # lr * lr_mult * (1 - b1) / sqrt(1 - b2) * sign(g), plus weight decay;
+    # an entry whose gradient is near bf16 noise can move either way, so
+    # every entry lies within twice its leaf's largest CPU step of the
+    # CPU's, and 90 % of the moved entries within a tenth of their step
+    lr = float(setup.schedules.lr[it])
+    close = total = 0
+    for n in before:
+        d_c, d_p = after_c[n] - before[n], after_p[n] - before[n]
+        err = (d_c - d_p).abs()
+        step = d_p.abs().max().item()
+        check(err.max().item() <= 2 * step + 1e-6,
+              f"[F] {n}: update differs by {err.max().item():.3e} > 2 x {step:.3e}")
+        moved = d_p.abs() > 0.1 * step
+        close += int((err[moved] <= 0.1 * d_p.abs()[moved]).sum())
+        total += int(moved.sum())
+    print(f"[F] updated student: {close / total:.4f} of the moved entries within "
+          f"a tenth of their step (lr {lr:.3e})")
+    check(close >= 0.9 * total, "[F] updated students disagree")
+
+
 # ---------------------------------------------------------------- main
 
 def main() -> int:
@@ -501,29 +950,46 @@ def main() -> int:
     from dinov3_tpu_torch.ops.common import resolve_device
 
     resolve_device("cuda")
+    KERNELS.update(_kernels())
     cfg = load_config(os.path.join(REPO, "configs", "train", "vitl16_im1k.yaml"))
     t_start = time.perf_counter()
     phase_a()
     rows = phase_b(cfg)
-    launches, _ = phase_c(cfg)
+    serve_launches, packs = phase_c(cfg)
     phase_d(cfg)
+    rows.update(phase_b_bwd())
+    train_launches, step = phase_e()
+    phase_f()
     print(f"[smoke] all phases passed in {time.perf_counter() - t_start:.1f} s")
 
     table = []
     for key, name, source, replaces in (
-        ("flash", "flash_fwd", "dinov3_tpu_torch/csrc/flash_fwd.cu",
+        ("K1", "flash_fwd", "dinov3_tpu_torch/csrc/flash_fwd.cu",
          "dinov3_tpu/ops/flash_attention.py:150"),
-        ("layernorm", "layernorm_fwd", "dinov3_tpu_torch/csrc/layernorm.cu",
+        ("K2", "flash_bwd_dq", "dinov3_tpu_torch/csrc/flash_bwd_dq.cu",
+         "dinov3_tpu/ops/flash_attention.py:336"),
+        ("K3", "flash_bwd_dkv", "dinov3_tpu_torch/csrc/flash_bwd_dkv.cu",
+         "dinov3_tpu/ops/flash_attention.py:353"),
+        ("K4", "layernorm_fwd", "dinov3_tpu_torch/csrc/layernorm.cu",
          "dinov3_tpu/ops/fused_norm.py:121"),
+        ("K5", "layernorm_bwd", "dinov3_tpu_torch/csrc/layernorm_bwd.cu",
+         "dinov3_tpu/ops/fused_norm.py:140"),
     ):
         r = rows[key]
         table.append({
             "name": name, "route": "cuda", "source": source,
-            "replaces": replaces, "launches": launches[key],
+            "replaces": replaces,
+            # the counted runs of both paths: 3 serve packs (phase C) and
+            # 5 training steps (phase E)
+            "launches": serve_launches[key] + train_launches[key],
+            "launches_per_serve_pack": serve_launches[key] / packs,
+            "launches_per_train_step": train_launches[key] / 5,
             "max_abs_err": r["max_abs_err"], "ms": r["ms"],
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
             "bound_by": r["bound_by"], "library_ms": r["library_ms"],
         })
+    print(f"[smoke] train step {step['ms']:.1f} ms, "
+          f"{TRAIN_B / step['ms'] * 1e3:.2f} img/s, peak {step['peak_gib']:.2f} GiB")
     print(json.dumps({"kernels": table}))
     print(smi_line())
     print(json.dumps({"ok": True, "device": {

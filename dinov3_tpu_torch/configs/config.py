@@ -1,10 +1,15 @@
 """Config system: YAML + dot-override merging onto an attribute-access dict
-(the subset of ``dinov3_tpu/configs/config.py`` the serve path reads).
+(the subset of ``dinov3_tpu/configs/config.py`` the serve and training
+slices read).
 
 The default schema is this package's copy of ``ssl_default_config.yaml``
 (held equal to the JAX package's by the tests); a run YAML is merged on
-top, then ``key.path=value`` overrides. The JAX loader's batch-size lr
-scaling and its training guardrails come with the training slice.
+top, then ``key.path=value`` overrides, then the batch-size lr scaling
+(``apply_scaling_rules_to_cfg``) for an explicit device count. The JAX
+loader's TPU guardrails (sublane tiling of row counts, collective bucket
+padding, the tuned-plan checks) are speed rules of that chip and are not
+carried over; ``check_train_slice`` holds a config to what the training
+slice implements and names where each missing option waits.
 """
 
 from __future__ import annotations
@@ -145,8 +150,11 @@ def get_default_config() -> ConfigNode:
 def load_config(
     config_file: str | os.PathLike | None = None,
     overrides: Iterable[str] = (),
+    *,
+    n_devices: int = 1,
 ) -> ConfigNode:
-    """default yaml <- run yaml <- dot overrides."""
+    """default yaml <- run yaml <- dot overrides, then the lr scaling for
+    ``n_devices`` devices (one card: 1)."""
     cfg = get_default_config().to_dict()
     if config_file:
         with open(config_file) as f:
@@ -157,7 +165,103 @@ def load_config(
     if "batch_size_per_gpu" in cfg.train:
         cfg.train.batch_size_per_device = cfg.train.pop("batch_size_per_gpu")
     apply_dot_overrides(cfg, overrides)
+    return apply_scaling_rules_to_cfg(cfg, n_devices)
+
+
+def data_parallel_world(cfg: ConfigNode, n_devices: int) -> int:
+    """Devices holding independent batch shards: the model-parallel axes
+    (tensor, seq, pipe, expert) replicate the batch and divide out."""
+    replicas = 1
+    par = cfg.get("parallel") or {}
+    for axis in ("tensor", "seq", "pipe", "expert"):
+        replicas *= int(par.get(axis, 1) or 1)
+    return max(1, int(n_devices) // replicas)
+
+
+def global_batch_size(cfg: ConfigNode, n_devices: int) -> int:
+    return cfg.train.batch_size_per_device * data_parallel_world(cfg, n_devices)
+
+
+def apply_scaling_rules_to_cfg(cfg: ConfigNode, n_devices: int) -> ConfigNode:
+    """Batch-size lr scaling, once: ``linear_wrt_256`` lr *= B/256,
+    ``sqrt_wrt_1024`` lr *= 4 * sqrt(B/1024), with B the global batch over
+    ``n_devices``; skipped when a schedules-v2 block gives absolute ramps.
+    The scaled lr is stored back and ``_lr_scaled`` set."""
+    if cfg.get("_lr_scaled") or cfg.get("schedules"):
+        return cfg
+    rule = cfg.optim.scaling_rule
+    B = global_batch_size(cfg, n_devices)
+    if rule == "linear_wrt_256":
+        cfg.optim.lr = cfg.optim.lr * B / 256.0
+    elif rule == "sqrt_wrt_1024":
+        cfg.optim.lr = cfg.optim.lr * 4.0 * (B / 1024.0) ** 0.5
+    elif rule not in (None, "", "none"):
+        raise ValueError(f"unknown scaling rule {rule!r}")
+    cfg["_lr_scaled"] = True
     return cfg
+
+
+def _wished(value, default_on: bool) -> bool:
+    if isinstance(value, str):
+        low = value.lower()
+        if low == "auto":
+            return default_on
+        if low not in ("true", "false", "on", "off"):
+            raise ValueError(f"expected auto/true/false, got {value!r}")
+        return low in ("true", "on")
+    return bool(value)
+
+
+def check_train_slice(cfg: ConfigNode) -> None:
+    """Refuse what the training slice does not implement, naming the
+    ROADMAP item where it waits; nothing falls back quietly. Also the
+    JAX meta-arch's own checks (local crops, iBOT head, mask ratios)."""
+    if cfg.crops.local_crops_number <= 0:
+        raise ValueError("DINOv3 needs local crops (crops.local_crops_number > 0)")
+    if not cfg.ibot.separate_head:
+        raise ValueError("only ibot.separate_head=true is supported")
+    lo, hi = cfg.ibot.mask_ratio_min_max
+    if not 0 <= lo < hi <= 1:
+        raise ValueError("provide a valid ibot.mask_ratio_min_max")
+    if cfg.optim.optimizer != "adamw":
+        raise ValueError(f"unsupported optimizer {cfg.optim.optimizer!r}")
+    s = cfg.student
+    waits = [
+        (_wished((cfg.get("loss") or {}).get("streaming_targets", "auto"), True),
+         "loss.streaming_targets: the streaming prototype-axis targets wait "
+         "(ROADMAP M2); set loss.streaming_targets=false for the "
+         "materialized targets"),
+        (cfg.train.centering != "sinkhorn_knopp",
+         f"train.centering={cfg.train.centering!r}: softmax centering waits "
+         "(ROADMAP M2)"),
+        (not _wished((cfg.get("model") or {}).get("crop_packing", "auto"), True),
+         "model.crop_packing=false: the two-pass student oracle waits "
+         "(ROADMAP M1)"),
+        (not _wished((cfg.get("rng") or {}).get("plan", "auto"), True),
+         "rng.plan=false: the per-block fold_in oracle has no counterpart; "
+         "the port always draws a step plan (ROADMAP M1)"),
+        (any(s.get(k) is not None for k in (
+            "pos_embed_rope_shift_coords", "pos_embed_rope_jitter_coords",
+            "pos_embed_rope_rescale_coords")),
+         "RoPE coordinate augmentation waits (ROADMAP M1)"),
+        (int((cfg.get("optim") or {}).get("accum_steps", 1) or 1) > 1,
+         "optim.accum_steps > 1: gradient accumulation waits (ROADMAP M4)"),
+        (bool(cfg.train.get("checkpointing")
+              or cfg.train.get("checkpointing_full")),
+         "train.checkpointing: activation checkpointing waits (ROADMAP M4)"),
+        (bool(cfg.gram.use_loss), "gram.use_loss: the Gram loss waits "
+         "(ROADMAP M2)"),
+        (bool(cfg.distillation.enabled), "distillation waits (ROADMAP M10)"),
+        (str((cfg.train.get("low_precision") or {}).get("arm", "bf16"))
+         != "bf16" or bool(s.get("fp8_enabled")),
+         "fp8/int8 matmuls wait (ROADMAP M9)"),
+        (str(cfg.compute_precision.get("target_dtype") or "fp32").lower()
+         not in ("fp32", "float32", "f32"),
+         "compute_precision.target_dtype other than fp32 waits (ROADMAP M2)"),
+    ]
+    for refused, msg in waits:
+        if refused:
+            raise NotImplementedError(msg)
 
 
 def continuous_packing_wished(cfg: ConfigNode) -> bool:

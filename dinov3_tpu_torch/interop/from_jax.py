@@ -8,6 +8,13 @@ Dense kernels [in, out] -> [out, in] (qkv [D, 3D] -> [3D, D]), the patch
 kernel [p, p, C, D] -> [D, C, p, p], and the mask token [D] -> [1, D].
 Both the unscanned (``blocks_N``) and the scanned (``blocks/block`` with
 [L, ...] stacked leaves) trees are taken.
+
+The training tree ``{"student": {backbone, dino_head, ibot_head},
+"teacher": {...}}`` maps onto ``SSLMetaArch``'s ``student`` and
+``teacher`` modules (``meta_state_dicts_from_jax``): the heads take Meta's
+names, ``mlp_i`` -> ``mlp.{2i}`` (the Linear layers between the GELUs)
+and ``prototypes`` [bottleneck, K] -> ``last_layer.weight`` [K,
+bottleneck]. A gradient tree of the same structure maps the same way.
 """
 
 from __future__ import annotations
@@ -63,19 +70,52 @@ def _top_key(path: tuple) -> tuple[str, str]:
     return ".".join(path), "none"
 
 
+def _to_torch(value, transpose=False) -> torch.Tensor:
+    a = np.asarray(value)
+    if transpose:
+        a = a.T
+    a = np.array(a, order="C")  # a writable, contiguous copy
+    if a.dtype.name == "bfloat16":  # numpy has no bf16: move the bits
+        return torch.from_numpy(a.view(np.uint16)).view(torch.bfloat16)
+    return torch.from_numpy(a)
+
+
+def head_state_dict_from_jax(params: Mapping) -> dict[str, torch.Tensor]:
+    """JAX ``DINOHead`` params -> the port's ``DINOHead`` ``state_dict``."""
+    out = {}
+    for path, value in _flatten(params).items():
+        if path == ("prototypes",):
+            out["last_layer.weight"] = _to_torch(value, transpose=True)
+            continue
+        m = re.fullmatch(r"mlp_(\d+)", path[0])
+        if m is None or len(path) != 2 or path[1] not in ("kernel", "bias"):
+            raise KeyError(f"unknown DINOHead leaf {'/'.join(path)}")
+        name = f"mlp.{2 * int(m.group(1))}.{'weight' if path[1] == 'kernel' else 'bias'}"
+        out[name] = _to_torch(value, transpose=path[1] == "kernel")
+    return out
+
+
+def meta_state_dicts_from_jax(params: Mapping) -> dict[str, dict]:
+    """The JAX training tree {"student": ..., "teacher": ...} (each
+    {backbone, dino_head, ibot_head}) -> {"student": state_dict,
+    "teacher": state_dict} for ``SSLMetaArch.student`` / ``.teacher``."""
+    out = {}
+    for role, sub in params.items():
+        sd = {f"backbone.{k}": v
+              for k, v in state_dict_from_jax(sub["backbone"]).items()}
+        for head in ("dino_head", "ibot_head"):
+            sd.update({f"{head}.{k}": v for k, v in
+                       head_state_dict_from_jax(sub[head]).items()})
+        out[role] = sd
+    return out
+
+
 def state_dict_from_jax(params: Mapping) -> dict[str, torch.Tensor]:
     """Nested JAX backbone params -> flat Meta-named torch ``state_dict``."""
     out: dict[str, torch.Tensor] = {}
 
     def put(name, value, transpose=False):
-        a = np.asarray(value)
-        if transpose:
-            a = a.T
-        a = np.array(a, order="C")  # a writable, contiguous copy
-        if a.dtype.name == "bfloat16":  # numpy has no bf16: move the bits
-            out[name] = torch.from_numpy(a.view(np.uint16)).view(torch.bfloat16)
-        else:
-            out[name] = torch.from_numpy(a)
+        out[name] = _to_torch(value, transpose)
 
     for path, value in _flatten(params).items():
         m = re.fullmatch(r"blocks_(\d+)", path[0])

@@ -14,15 +14,19 @@ from dinov3_tpu_torch.models.vision_transformer import (
 from dinov3_tpu_torch.ops.common import Policy, resolve_device
 
 
-def backbone_kwargs_from_cfg(cfg) -> dict:
-    """``student`` section -> ``DinoVisionTransformer`` kwargs for the
-    deterministic (teacher/serve) forward: drop path, RoPE coordinate
-    augmentation and the TPU execution options (remat, scan, sharding,
-    kernel dispatch thresholds) do not apply to it."""
+def backbone_kwargs_from_cfg(cfg, *, teacher: bool = True) -> dict:
+    """``student`` section -> ``DinoVisionTransformer`` kwargs. The teacher
+    (and serve) backbone is deterministic: no drop path. The student takes
+    ``student.drop_path_rate`` and ``drop_path_mode``. RoPE coordinate
+    augmentation is not ported (the recipes leave it null; the training
+    setup refuses it), and the TPU execution options (remat, scan,
+    sharding, kernel dispatch thresholds) do not apply."""
     s = cfg.student
     policy = Policy.from_cfg(cfg.compute_precision)
     return dict(
         patch_size=s.patch_size,
+        drop_path_rate=0.0 if teacher else float(s.drop_path_rate),
+        drop_path_mode=s.drop_path_mode,
         layerscale_init=s.layerscale,
         ffn_layer=s.ffn_layer,
         ffn_ratio=s.ffn_ratio,
@@ -46,10 +50,10 @@ def backbone_kwargs_from_cfg(cfg) -> dict:
 
 
 def build_backbone(cfg, *, device="cuda", seed: int = 0) -> DinoVisionTransformer:
-    """The configured ViT with a seeded random init, in the policy's
-    parameter dtype, on ``device``. The init is drawn on the CPU from a
-    ``torch.Generator`` seeded with ``seed``, so the weights are the same
-    whatever the device."""
+    """The configured (teacher/serve) ViT with a seeded random init, in the
+    policy's parameter dtype, on ``device``. The init is drawn on the CPU
+    from a ``torch.Generator`` seeded with ``seed``, so the weights are the
+    same whatever the device."""
     dev = resolve_device(device)
     arch = cfg.student.arch
     if arch.startswith("convnext"):

@@ -1,9 +1,12 @@
 """DINOv3 Vision Transformer (``dinov3_tpu/models/vision_transformer.py``).
 
 Patch embed -> [CLS + storage tokens + patches] -> RoPE-attention blocks
--> final norms. Ported: the deterministic forward over same-resolution
-images (``forward``) and the serve forward over host-packed multi-image
-planes (``packed_feature_forward``). Parameters carry the names of Meta's
+-> final norms. Ported: the forward over same-resolution images with the
+iBOT mask token (``forward``: the teacher's and the serve path's), the
+crop-packed training forward of global and local crops in one block stack
+(``forward(..., local_crops=...)``, with the step's drop-path plan), and
+the serve forward over host-packed multi-image planes
+(``packed_feature_forward``). Parameters carry the names of Meta's
 ``state_dict`` (``blocks.N.attn.qkv.weight``, ``patch_embed.proj.weight``,
 ...), so released weights load as they are.
 """
@@ -17,13 +20,21 @@ from dinov3_tpu_torch.ops.block import SelfAttentionBlock
 from dinov3_tpu_torch.ops.common import canonical_dtype, trunc_normal_init
 from dinov3_tpu_torch.ops.layer_scale import LayerScale
 from dinov3_tpu_torch.ops.norms import LayerNorm, RMSNorm, make_norm_layer
+from dinov3_tpu_torch.ops.packing import (
+    make_packed_layout,
+    pack_local_rows,
+    packed_segment_ids,
+    split_packed_output,
+)
 from dinov3_tpu_torch.ops.patch_embed import PatchEmbed
 from dinov3_tpu_torch.ops.rope import (
     rope_angles_sincos,
+    rope_packed_rows,
     rope_periods,
     rope_sincos,
     rope_with_identity_prefix,
 )
+from dinov3_tpu_torch.rng.plan import plan_layer_slice
 
 
 class DinoVisionTransformer(nn.Module):
@@ -40,6 +51,8 @@ class DinoVisionTransformer(nn.Module):
         proj_bias: bool = True,
         ffn_bias: bool = True,
         layerscale_init: float | None = None,
+        drop_path_rate: float = 0.0,
+        drop_path_mode: str = "subset",
         norm_layer: str = "layernorm",
         ffn_layer: str = "mlp",
         n_storage_tokens: int = 0,
@@ -61,7 +74,10 @@ class DinoVisionTransformer(nn.Module):
         self.n_blocks = n_blocks
         self.num_heads = num_heads
         self.n_storage_tokens = n_storage_tokens
+        self.drop_path_rate = drop_path_rate
+        self.drop_path_mode = drop_path_mode
         self.untie_cls_and_patch_norms = untie_cls_and_patch_norms
+        self.untie_global_and_local_cls_norm = untie_global_and_local_cls_norm
         self.pos_embed_type = pos_embed_type
         self.rope_base = pos_embed_rope_base
         self.rope_min_period = pos_embed_rope_min_period
@@ -81,14 +97,15 @@ class DinoVisionTransformer(nn.Module):
                 embed_dim, num_heads, ffn_ratio=ffn_ratio, ffn_layer=ffn_layer,
                 norm_layer=norm_layer, qkv_bias=qkv_bias, proj_bias=proj_bias,
                 ffn_bias=ffn_bias, layerscale_init=layerscale_init,
-                mask_k_bias=mask_k_bias, dtype=dtype)
+                mask_k_bias=mask_k_bias, drop_path_rate=drop_path_rate,
+                dtype=dtype)
             for _ in range(n_blocks))
         self.norm = make_norm_layer(norm_layer, embed_dim)
         if untie_cls_and_patch_norms:
             self.cls_norm = make_norm_layer(norm_layer, embed_dim)
         if untie_global_and_local_cls_norm:
-            # training-time local-crop CLS norm: kept so Meta's and the JAX
-            # trees load whole; the deterministic forwards never read it
+            # training-time local-crop CLS norm (the deterministic forwards
+            # never read it)
             self.local_cls_norm = make_norm_layer(norm_layer, embed_dim)
 
     @property
@@ -154,37 +171,118 @@ class DinoVisionTransformer(nn.Module):
         return rope_angles_sincos(coords, self._periods(coords.device),
                                   dtype=self.rope_dtype)
 
-    def _run_blocks(self, x, rope, seg=None):
-        for blk in self.blocks:
-            x = blk(x, rope=rope, seg=seg)
-        return x
-
-    # ---------------- forwards ----------------
-
-    def forward(self, x: torch.Tensor) -> dict:
-        """Deterministic forward of same-resolution images x [B, H, W, C].
-
-        Returns x_norm_clstoken [B, D], x_storage_tokens [B, S, D],
-        x_norm_patchtokens [B, T, D] and x_prenorm [B, 1+S+T, D]."""
+    def _embed(self, x, masks=None):
+        """[B, H, W, C] -> ([B, 1+S+T, D], (h, w)); masked patch tokens
+        (masks [B, T] bool) become the mask token."""
         B = x.shape[0]
         h, w = x.shape[1] // self.patch_size, x.shape[2] // self.patch_size
         tokens = self.patch_embed(x)
+        if masks is not None:
+            tokens = torch.where(masks[..., None],
+                                 self.mask_token.to(tokens.dtype), tokens)
         prefix = self._prefix_table(tokens.dtype)
-        tokens = torch.cat(
-            [prefix[None].expand(B, -1, -1), tokens], dim=1)
-        out = self._run_blocks(tokens, self._rope_table(h, w, x.device))
+        return torch.cat([prefix[None].expand(B, -1, -1), tokens], dim=1), (h, w)
+
+    def _run_blocks(self, x, rope, seg=None, plan=None):
+        for i, blk in enumerate(self.blocks):
+            x = blk(x, rope=rope, seg=seg, plan=plan_layer_slice(plan, i))
+        return x
+
+    def _check_plan(self, train: bool, plan) -> dict | None:
+        """The drop-path plan a call consumes: none when deterministic; a
+        training call with drop path must bring one."""
+        if not train:
+            return None
+        if self.drop_path_rate > 0.0 and not (plan or {}).get("drop_path"):
+            raise ValueError(
+                "a training forward with drop_path_rate > 0 needs the step's "
+                "drop-path plan (rng/plan.py packed_pass_plan)")
+        return plan
+
+    def _final_norms(self, x, *, crop_kind: str, train: bool):
+        """(normed prefix tokens, normed patch tokens) of a block output."""
         n = self.n_prefix
-        if self.untie_cls_and_patch_norms:
-            x_cls_reg = self.cls_norm(out[:, :n])
-            x_patch = self.norm(out[:, n:])
-        else:
-            xn = self.norm(out)
-            x_cls_reg, x_patch = xn[:, :n], xn[:, n:]
+        if not (self.untie_cls_and_patch_norms
+                or self.untie_global_and_local_cls_norm):
+            xn = self.norm(x)
+            return xn[:, :n], xn[:, n:]
+        return self._cls_norm(crop_kind, train)(x[:, :n]), self.norm(x[:, n:])
+
+    def _cls_norm(self, crop_kind: str, train: bool):
+        if self.untie_global_and_local_cls_norm and train and crop_kind == "local":
+            return self.local_cls_norm
+        return self.cls_norm if self.untie_cls_and_patch_norms else self.norm
+
+    # ---------------- forwards ----------------
+
+    def forward(self, x: torch.Tensor, masks: torch.Tensor | None = None, *,
+                train: bool = False, plan: dict | None = None,
+                local_crops: torch.Tensor | None = None) -> dict:
+        """Forward of same-resolution images x [B, H, W, C]; masks
+        optional [B, T] bool (those patch tokens become the mask token).
+
+        Returns x_norm_clstoken [B, D], x_storage_tokens [B, S, D],
+        x_norm_patchtokens [B, T, D], x_prenorm [B, 1+S+T, D] and masks.
+        ``train`` with ``plan`` (the step's drop-path plan) is the student's
+        forward; with ``local_crops`` [n_l*B, h, w, C] the local crops are
+        packed k to a global-length row and run through the same block
+        stack (``_packed_forward``), and the dict also carries
+        ``local_cls`` [n_l*B, D] and ``local_storage_tokens``."""
+        plan = self._check_plan(train, plan)
+        if local_crops is not None:
+            return self._packed_forward(x, masks, local_crops, plan, train)
+        tokens, (h, w) = self._embed(x, masks)
+        out = self._run_blocks(tokens, self._rope_table(h, w, x.device),
+                               plan=plan)
+        x_cls_reg, x_patch = self._final_norms(out, crop_kind="global",
+                                               train=train)
         return {
             "x_norm_clstoken": x_cls_reg[:, 0],
             "x_storage_tokens": x_cls_reg[:, 1:],
             "x_norm_patchtokens": x_patch,
             "x_prenorm": out,
+            "masks": masks,
+        }
+
+    def _packed_forward(self, x, masks, local_crops, plan, train) -> dict:
+        """Global and local crops in one block stack: 2B global rows plus
+        P = ceil(n_l*B / k) rows of k local sequences each, under
+        segment-masked attention and per-row RoPE tables
+        (``ops/packing.py``). Norms are per token, so norming the local
+        prefix tokens after extraction equals norming before."""
+        g_tokens, (hg, wg) = self._embed(x, masks)
+        l_tokens, (hl, wl) = self._embed(local_crops)
+        layout = make_packed_layout(
+            n_global_rows=g_tokens.shape[0], n_local=l_tokens.shape[0],
+            seq_global=g_tokens.shape[1], seq_local=l_tokens.shape[1],
+            n_prefix=self.n_prefix)
+        if layout.k < 2:
+            raise ValueError(
+                f"crop packing needs k >= 2 local sequences per global row "
+                f"(N_g={layout.seq_global}, N_l={layout.seq_local})")
+        tokens = torch.cat([g_tokens, pack_local_rows(l_tokens, layout)])
+        seg = torch.from_numpy(packed_segment_ids(layout)).to(x.device)
+        rope = None
+        if self.pos_embed_type == "rope":
+            rope = rope_packed_rows(self._rope_table(hg, wg, x.device),
+                                    self._rope_table(hl, wl, x.device), layout)
+        out = self._run_blocks(tokens, rope, seg=seg, plan=plan)
+        g_rows, p_rows = split_packed_output(out, layout)
+        l_tok = p_rows[:, : layout.k * layout.seq_local]
+        l_prefix = l_tok.reshape(layout.n_packed_rows * layout.k,
+                                 layout.seq_local, -1)[: layout.n_local,
+                                                       : self.n_prefix]
+        x_cls_reg, x_patch = self._final_norms(g_rows, crop_kind="global",
+                                               train=train)
+        l_cls_reg = self._cls_norm("local", train)(l_prefix)
+        return {
+            "x_norm_clstoken": x_cls_reg[:, 0],
+            "x_storage_tokens": x_cls_reg[:, 1:],
+            "x_norm_patchtokens": x_patch,
+            "x_prenorm": out,
+            "masks": masks,
+            "local_cls": l_cls_reg[:, 0],
+            "local_storage_tokens": l_cls_reg[:, 1:],
         }
 
     def packed_feature_forward(self, patches, coords, prefix_idx, seg) -> dict:

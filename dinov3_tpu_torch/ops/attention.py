@@ -2,10 +2,11 @@
 
 ``SelfAttention`` runs one fused qkv projection, optionally zeroes the k
 third of its bias (``mask_k_bias``), rotates q and k, and sends every
-attention call to kernel K1 (``ops/flash_attention.py``): on CUDA tensors
-the Hopper kernel, on CPU tensors its plain version ``attention_plain``,
-the port of the JAX ``xla_attention`` with ``seg`` (dense fp32 softmax,
-masked logits -1e30).
+attention call to ``ops/flash_attention.py`` (K1 forward, K2 and K3
+backward): on CUDA tensors the Hopper kernels, on CPU tensors their
+plain versions (``attention_plain``, the port of the JAX
+``xla_attention`` with ``seg``: dense fp32 softmax, masked logits -1e30;
+``attention_bwd_plain``).
 """
 
 from __future__ import annotations

@@ -1,5 +1,13 @@
-"""Pre-norm transformer block with LayerScale (``dinov3_tpu/ops/block.py``),
-the deterministic branch: stochastic depth is inert when serving."""
+"""Pre-norm transformer block with LayerScale and stochastic depth
+(``dinov3_tpu/ops/block.py``).
+
+Deterministic (teacher, serve) calls add both residual branches. A
+training call with ``drop_path_rate > 0`` takes this block's slice of the
+step's drop-path plan (``rng/plan.py``): ``{"idx": [2, keep]}`` runs each
+branch on its kept rows only (``subset_residual_planned``), with the rows'
+own RoPE tables and segment ids gathered alongside; ``{"keep": [2, B]}``
+masks whole rows (``mask_residual_planned``).
+"""
 
 from __future__ import annotations
 
@@ -7,6 +15,10 @@ import torch
 from torch import nn
 
 from dinov3_tpu_torch.ops.attention import SelfAttention
+from dinov3_tpu_torch.ops.drop_path import (
+    mask_residual_planned,
+    subset_residual_planned,
+)
 from dinov3_tpu_torch.ops.ffn import make_ffn_layer
 from dinov3_tpu_torch.ops.layer_scale import LayerScale
 from dinov3_tpu_torch.ops.norms import make_norm_layer
@@ -17,8 +29,10 @@ class SelfAttentionBlock(nn.Module):
                  ffn_layer: str = "mlp", norm_layer: str = "layernorm",
                  qkv_bias: bool = True, proj_bias: bool = True,
                  ffn_bias: bool = True, layerscale_init: float | None = 1e-5,
-                 mask_k_bias: bool = False, dtype: torch.dtype = torch.bfloat16):
+                 mask_k_bias: bool = False, drop_path_rate: float = 0.0,
+                 dtype: torch.dtype = torch.bfloat16):
         super().__init__()
+        self.drop_path_rate = drop_path_rate
         self.norm1 = make_norm_layer(norm_layer, dim)
         self.attn = SelfAttention(dim, num_heads, qkv_bias=qkv_bias,
                                   proj_bias=proj_bias, mask_k_bias=mask_k_bias,
@@ -32,6 +46,27 @@ class SelfAttentionBlock(nn.Module):
         else:
             self.ls1 = self.ls2 = nn.Identity()
 
-    def forward(self, x: torch.Tensor, rope=None, seg=None) -> torch.Tensor:
-        x = x + self.ls1(self.attn(self.norm1(x), rope=rope, seg=seg))
-        return x + self.ls2(self.mlp(self.norm2(x)))
+    def forward(self, x: torch.Tensor, rope=None, seg=None,
+                plan: dict | None = None) -> torch.Tensor:
+        """``plan``: this block's drop-path slice, given on training calls
+        (required there when ``drop_path_rate > 0``), None otherwise."""
+
+        def attn_branch(t, aux=None):
+            r, s = (rope, seg) if aux is None else (aux["rope"], aux["seg"])
+            return self.ls1(self.attn(self.norm1(t), rope=r, seg=s))
+
+        def mlp_branch(t, aux=None):
+            return self.ls2(self.mlp(self.norm2(t)))
+
+        if plan is None or self.drop_path_rate == 0.0:
+            x = x + attn_branch(x)
+            return x + mlp_branch(x)
+        if "idx" in plan:
+            # per-row context rides the subset gather with its rows
+            aux = {"rope": rope, "seg": seg} if seg is not None else None
+            x = subset_residual_planned(x, attn_branch, plan["idx"][0], aux)
+            return subset_residual_planned(x, mlp_branch, plan["idx"][1], aux)
+        x = mask_residual_planned(x, attn_branch(x), plan["keep"][0],
+                                  self.drop_path_rate)
+        return mask_residual_planned(x, mlp_branch(x), plan["keep"][1],
+                                     self.drop_path_rate)

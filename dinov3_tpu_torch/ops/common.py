@@ -65,6 +65,14 @@ def dense(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor | None,
     return y if bias is None else y + bias.to(dtype)
 
 
+def l2_normalize(x: torch.Tensor, dim: int = -1,
+                 eps: float = 1e-12) -> torch.Tensor:
+    """``x * rsqrt(sum(x^2) + eps^2)``: eps inside the rsqrt, so value and
+    gradient stay finite at x == 0 (``x / (||x|| + eps)`` has a 0/0
+    gradient there)."""
+    return x * torch.rsqrt((x * x).sum(dim=dim, keepdim=True) + eps * eps)
+
+
 def resolve_device(device) -> torch.device:
     """The device an entry point runs on. ``"cuda"`` without a card
     raises (pass ``device="cpu"`` for the plain versions of the kernels).

@@ -1,17 +1,19 @@
-"""Kernel K4: row LayerNorm forward, and its plain twin.
+"""Kernels K4 and K5: row LayerNorm forward and backward, and their plain
+twins.
 
-The TPU kernel it replaces is ``dinov3_tpu/ops/fused_norm.py``
-``_ln_2d_fwd`` (body ``_fwd_kernel``); the Hopper kernel is
-``csrc/layernorm.cu`` (its header says what bounds it and what its design
-does). Both normalize over the last dim with fp32 statistics in the
-reference's two-pass order (mean, then the mean of squared centred
+The TPU kernels they replace are ``dinov3_tpu/ops/fused_norm.py``
+``_ln_2d_fwd`` (body ``_fwd_kernel``) and ``_ln_2d_bwd`` (body
+``_bwd_kernel``); the Hopper kernels are ``csrc/layernorm.cu`` and
+``csrc/layernorm_bwd.cu`` (their headers say what bounds them and what
+their designs do). Both normalize over the last dim with fp32 statistics in
+the reference's two-pass order (mean, then the mean of squared centred
 values), and write y = (x - mean) * rstd * scale + bias once in x's dtype.
+The backward recomputes the statistics from x, as the reference does.
 
-``fused_layernorm`` is the wrapper: a CPU tensor goes to the plain version
-(``layernorm_plain``); a CUDA tensor launches the kernel or raises. Only
-the forward exists: the backward kernel comes with the training slice,
-so a CUDA call that autograd would record (grad mode on and an input that
-requires grad) raises.
+``fused_layernorm`` is the entry point: a ``torch.autograd.Function`` whose
+forward and backward take the plain versions (``layernorm_plain``,
+``layernorm_bwd_plain``) for CPU tensors and launch the kernels for CUDA
+tensors, or raise.
 """
 
 from __future__ import annotations
@@ -25,34 +27,57 @@ from dinov3_tpu_torch.ops._cuda import CudaKernel, stream_ptr
 _P, _I = ctypes.c_void_p, ctypes.c_int
 LAYERNORM_FWD = CudaKernel(
     "layernorm_fwd", "layernorm.cu", [_P, _P, _P, _P, _I, _I, ctypes.c_float, _I, _I, _P])
+LAYERNORM_BWD = CudaKernel(
+    "layernorm_bwd", "layernorm_bwd.cu",
+    [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, ctypes.c_float, _I, _I, _P])
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 MAX_WIDTH = 4096
+# the backward's first pass runs at most this many CTAs (8 resident CTAs
+# of 256 threads on each of the H100's 132 SMs), each over a fixed run of
+# rows; the second pass sums their partials in CTA order
+BWD_MAX_CTAS = 8 * 132
+
+
+def _stats_dtype(x: torch.Tensor) -> torch.dtype:
+    """fp32 statistics for bf16/fp32 inputs; fp64 stays fp64 (gradcheck)."""
+    return torch.promote_types(x.dtype, torch.float32)
 
 
 def layernorm_plain(x, scale, bias, eps: float = 1e-6):
     """LayerNorm over the last dim: fp32 statistics, output in x's dtype
     (the reference's ``_stats`` order)."""
-    xf = x.float()
+    xf = x.to(_stats_dtype(x))
     mean = xf.mean(dim=-1, keepdim=True)
     xc = xf - mean
     rstd = torch.rsqrt((xc * xc).mean(dim=-1, keepdim=True) + eps)
-    return (xc * rstd * scale.float() + bias.float()).to(x.dtype)
+    return (xc * rstd * scale.to(xf.dtype) + bias.to(xf.dtype)).to(x.dtype)
 
 
-def fused_layernorm(x, scale, bias, eps: float = 1e-6):
-    """LayerNorm of x [..., D] with scale and bias [D]; on CUDA tensors
-    this launches K4 (``csrc/layernorm.cu``) over the [rows, D] view of a
-    contiguous x."""
-    if x.device.type == "cpu":
-        return layernorm_plain(x, scale, bias, eps)
-    if x.device.type != "cuda":
-        raise ValueError(f"fused_layernorm runs on cpu or cuda, not {x.device}")
-    if torch.is_grad_enabled() and any(
-            t.requires_grad for t in (x, scale, bias)):
-        raise NotImplementedError(
-            "fused_layernorm has no CUDA backward yet: the backward kernel "
-            "comes with the training slice of the port")
+def layernorm_bwd_plain(x, scale, g, eps: float = 1e-6):
+    """(dx, dscale, dbias) of ``layernorm_plain`` given the output gradient
+    g, written out from the reference kernel's formulas: statistics
+    recomputed from x, dx = rstd * (gs - mean(gs) - xhat * mean(gs * xhat))
+    with gs = g * scale, dscale = sum g * xhat and dbias = sum g over rows.
+    dx comes back in x's dtype, dscale and dbias in scale's."""
+    ct = _stats_dtype(x)
     D = x.shape[-1]
+    xf = x.reshape(-1, D).to(ct)
+    gf = g.reshape(-1, D).to(ct)
+    mean = xf.mean(dim=-1, keepdim=True)
+    xc = xf - mean
+    rstd = torch.rsqrt((xc * xc).mean(dim=-1, keepdim=True) + eps)
+    xhat = xc * rstd
+    gs = gf * scale.to(ct)
+    c1 = gs.mean(dim=-1, keepdim=True)
+    c2 = (gs * xhat).mean(dim=-1, keepdim=True)
+    dx = rstd * (gs - c1 - xhat * c2)
+    return (dx.to(x.dtype).reshape(x.shape), (gf * xhat).sum(0).to(scale.dtype),
+            gf.sum(0).to(scale.dtype))
+
+
+def _check(x, scale, bias=None):
+    D = x.shape[-1]
+    bias = scale if bias is None else bias
     if x.dtype not in _DTYPE_CODE or scale.dtype not in _DTYPE_CODE \
             or bias.dtype != scale.dtype:
         raise ValueError(
@@ -70,6 +95,12 @@ def fused_layernorm(x, scale, bias, eps: float = 1e-6):
         raise ValueError("fused_layernorm wants contiguous x, scale and bias")
     if scale.device != x.device or bias.device != x.device:
         raise ValueError("x, scale and bias must lie on one device")
+
+
+def layernorm_fwd(x, scale, bias, eps: float = 1e-6):
+    """K4 on CUDA tensors: y over the [rows, D] view of a contiguous x."""
+    _check(x, scale, bias)
+    D = x.shape[-1]
     y = torch.empty_like(x)
     rows = x.numel() // D
     if rows:
@@ -78,3 +109,59 @@ def fused_layernorm(x, scale, bias, eps: float = 1e-6):
             rows, D, float(eps), _DTYPE_CODE[x.dtype],
             _DTYPE_CODE[scale.dtype], stream_ptr(x.device))
     return y
+
+
+def layernorm_bwd(x, scale, g, eps: float = 1e-6):
+    """K5 on CUDA tensors: (dx, dscale, dbias) for a contiguous x and g of
+    one shape. Both of its passes are one launch."""
+    _check(x, scale)
+    if g.shape != x.shape or g.dtype != x.dtype or g.device != x.device \
+            or not g.is_contiguous():
+        raise ValueError(
+            f"the LayerNorm backward wants a contiguous g like x "
+            f"({x.dtype} {tuple(x.shape)}); got {g.dtype} {tuple(g.shape)}")
+    D = x.shape[-1]
+    rows = x.numel() // D
+    dx = torch.empty_like(x)
+    if rows == 0:  # no rows: zero parameter gradients, nothing launched
+        return dx, torch.zeros_like(scale), torch.zeros_like(scale)
+    per_cta = -(-rows // BWD_MAX_CTAS)
+    n_cta = -(-rows // per_cta)
+    part = torch.empty((2, n_cta, D), dtype=torch.float32, device=x.device)
+    dscale = torch.empty_like(scale)
+    dbias = torch.empty_like(scale)
+    LAYERNORM_BWD.launch(
+        x.data_ptr(), scale.data_ptr(), g.data_ptr(), dx.data_ptr(),
+        dscale.data_ptr(), dbias.data_ptr(), part.data_ptr(), rows, D, n_cta,
+        per_cta, float(eps), _DTYPE_CODE[x.dtype], _DTYPE_CODE[scale.dtype],
+        stream_ptr(x.device))
+    return dx, dscale, dbias
+
+
+class _LayerNorm(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, scale, bias, eps):
+        ctx.eps = eps
+        ctx.save_for_backward(x, scale)
+        if x.device.type == "cpu":
+            return layernorm_plain(x, scale, bias, eps)
+        return layernorm_fwd(x, scale, bias, eps)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, scale = ctx.saved_tensors
+        if x.device.type == "cpu":
+            dx, ds, db = layernorm_bwd_plain(x, scale, g, ctx.eps)
+        else:
+            dx, ds, db = layernorm_bwd(x, scale, g.contiguous(), ctx.eps)
+        return dx, ds, db, None
+
+
+def fused_layernorm(x, scale, bias, eps: float = 1e-6):
+    """LayerNorm of x [..., D] with scale and bias [D]. On CUDA tensors the
+    forward launches K4 (``csrc/layernorm.cu``) and the backward K5
+    (``csrc/layernorm_bwd.cu``) over the [rows, D] view of a contiguous x;
+    on CPU tensors both take the plain versions."""
+    if x.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"fused_layernorm runs on cpu or cuda, not {x.device}")
+    return _LayerNorm.apply(x, scale, bias, float(eps))

@@ -1,7 +1,8 @@
 """Normalization layers with fp32 statistics (``dinov3_tpu/ops/norms.py``).
 
-``LayerNorm`` runs through kernel K4 (``ops/fused_norm.py``) on CUDA
-tensors and its plain version on CPU tensors. Parameters are named
+``LayerNorm`` runs through kernels K4 and K5 (``ops/fused_norm.py``,
+forward and backward) on CUDA tensors and their plain versions on CPU
+tensors. Parameters are named
 ``weight`` and ``bias`` as in Meta's ``state_dict``.
 """
 

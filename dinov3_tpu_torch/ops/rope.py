@@ -1,6 +1,7 @@
 """2-D rotary position embeddings for ViT patch grids
-(``dinov3_tpu/ops/rope.py``), the deterministic subset the serve path
-uses: no coordinate augmentation (that is training-time only).
+(``dinov3_tpu/ops/rope.py``) without coordinate augmentation (the
+recipe's shift, jitter and rescale are null), plus the per-row tables of
+the crop-packed training batch (``rope_packed_rows``).
 
 Angles are computed in fp32 as 2*pi*coords/periods with periods
 ``base ** (2j / (head_dim/2))`` in fp32, in the reference's order, so
@@ -100,3 +101,23 @@ def rope_apply_full(q: torch.Tensor, k: torch.Tensor, sin: torch.Tensor,
         return torch.cat([x1 * c - x2 * s, x2 * c + x1 * s], dim=-1).to(t.dtype)
 
     return rot(q), rot(k)
+
+
+def rope_packed_rows(global_table, local_table, layout):
+    """Per-row (sin, cos) tables, each [R, N_g, head_dim], for a crop-packed
+    batch (``ops/packing.py``): global rows take the global table; packed
+    rows tile the local table k times (each segment keeps its own grid and
+    identity prefix rows) and end in identity rotations over the row-tail
+    pads. Both tables carry their identity prefix rows already."""
+    sin_g, cos_g = global_table
+    sin_l, cos_l = local_table
+    d = sin_g.shape[-1]
+    pad = layout.pad_tokens_per_row
+    sin_p = torch.cat([sin_l.repeat(layout.k, 1), sin_l.new_zeros(pad, d)])
+    cos_p = torch.cat([cos_l.repeat(layout.k, 1), cos_l.new_ones(pad, d)])
+
+    def rows(g, p):
+        return torch.cat([g[None].expand(layout.n_global_rows, -1, -1),
+                          p[None].expand(layout.n_packed_rows, -1, -1)])
+
+    return rows(sin_g, sin_p), rows(cos_g, cos_p)

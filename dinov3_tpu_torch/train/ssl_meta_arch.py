@@ -1,0 +1,218 @@
+"""DINOv3 SSL meta-architecture on one device
+(``dinov3_tpu/train/ssl_meta_arch.py``, the configuration of the training
+slice: crop-packed student, Sinkhorn-Knopp teacher targets materialized,
+DINO + iBOT + KoLeo losses).
+
+``SSLMetaArch`` is an ``nn.Module`` holding the student and the EMA
+teacher, each an ``nn.ModuleDict`` of ``backbone`` (the ViT),
+``dino_head`` and ``ibot_head``; the teacher starts as a copy of the
+student and gets no gradients. Parameters are fp32 masters; the backbones
+and the heads' MLPs compute in ``compute_precision.compute_dtype``.
+
+Batch contract (``data/synthetic.py``): global_crops [2B, S, S, 3],
+local_crops [n_l*B, s, s, 3], masks [2B, T] bool, mask_indices [2B, M]
+int (per-image token index, 0-padded), mask_weights [2B, M] fp32
+(1/n_masked of the image, 0 for padding), mask_valid [2B, M] bool.
+"""
+
+from __future__ import annotations
+
+import copy
+
+import torch
+from torch import nn
+
+from dinov3_tpu_torch.configs.config import check_train_slice
+from dinov3_tpu_torch.losses import (
+    dino_pair_ce,
+    ibot_patch_loss_masked,
+    koleo_loss,
+    pair_ce_to_loss,
+    sinkhorn_knopp,
+)
+from dinov3_tpu_torch.models import ARCHS, backbone_kwargs_from_cfg
+from dinov3_tpu_torch.ops.common import Policy
+from dinov3_tpu_torch.ops.dino_head import DINOHead
+from dinov3_tpu_torch.train.optimizer import ema_
+
+
+def _head(cfg_section, in_dim: int, dtype) -> DINOHead:
+    return DINOHead(
+        in_dim, cfg_section.head_n_prototypes,
+        hidden_dim=cfg_section.head_hidden_dim,
+        bottleneck_dim=cfg_section.head_bottleneck_dim,
+        nlayers=cfg_section.head_nlayers,
+        norm_last_layer=cfg_section.head_norm_last_layer, dtype=dtype)
+
+
+class SSLMetaArch(nn.Module):
+    def __init__(self, cfg, seed: int = 0, n_blocks: int | None = None):
+        """``n_blocks`` cuts the configured depth (card-vs-CPU checks at
+        full width); None keeps it."""
+        super().__init__()
+        check_train_slice(cfg)
+        arch = cfg.student.arch
+        if arch not in ARCHS:
+            raise NotImplementedError(
+                f"student.arch={arch!r}: the training slice ports the ViTs "
+                f"{sorted(ARCHS)}")
+        self.cfg = cfg
+        self.n_local_crops = cfg.crops.local_crops_number
+        dtype = Policy.from_cfg(cfg.compute_precision).compute_dtype
+        depth = {} if n_blocks is None else {"n_blocks": n_blocks}
+        backbone = ARCHS[arch](**backbone_kwargs_from_cfg(cfg, teacher=False), **depth)
+        self.embed_dim = backbone.embed_dim
+        self.student = nn.ModuleDict({
+            "backbone": backbone,
+            "dino_head": _head(cfg.dino, self.embed_dim, dtype),
+            "ibot_head": _head(cfg.ibot, self.embed_dim, dtype),
+        })
+        g = torch.Generator().manual_seed(seed)
+        backbone.init_weights(g)
+        self.student["dino_head"].init_weights(g)
+        self.student["ibot_head"].init_weights(g)
+        self.student.float()
+        teacher_backbone = ARCHS[arch](**backbone_kwargs_from_cfg(cfg, teacher=True),
+                                       **depth)
+        self.teacher = nn.ModuleDict({
+            "backbone": teacher_backbone,
+            "dino_head": copy.deepcopy(self.student["dino_head"]),
+            "ibot_head": copy.deepcopy(self.student["ibot_head"]),
+        }).float()
+        self.teacher.load_state_dict(self.student.state_dict())
+        self.teacher.requires_grad_(False)
+        self.dino_local_weight_schedule = None
+        if cfg.dino.reweight_dino_local_loss:
+            from dinov3_tpu_torch.train.schedules import linear_warmup_cosine_decay
+
+            s = cfg.dino.local_loss_weight_schedule
+            L = cfg.train.OFFICIAL_EPOCH_LENGTH
+            self.dino_local_weight_schedule = linear_warmup_cosine_decay(
+                start=s["start"], peak=s["peak"], end=s["end"],
+                warmup_iterations=int(s.get("warmup_epochs", 0) * L),
+                total_iterations=L * cfg.optim.epochs)
+
+    # ---------------- forwards ----------------
+
+    @staticmethod
+    def _gather_masked(patch_tokens, mask_indices):
+        """[2B, T, D], [2B, M] -> [2B, M, D]."""
+        idx = mask_indices.long()[..., None].expand(-1, -1, patch_tokens.shape[-1])
+        return torch.gather(patch_tokens, 1, idx)
+
+    @torch.no_grad()
+    def get_teacher_output(self, batch: dict, teacher_temp: float) -> dict:
+        """The EMA teacher over the global crops, then its targets."""
+        out = self.teacher["backbone"](batch["global_crops"])
+        return self.teacher_targets_from_features(
+            out["x_norm_clstoken"], out["x_norm_patchtokens"], batch,
+            teacher_temp)
+
+    @torch.no_grad()
+    def teacher_targets_from_features(self, cls, patches, batch: dict,
+                                      teacher_temp: float) -> dict:
+        """Heads -> Sinkhorn-Knopp targets, from cls [2B, D] and patches
+        [2B, T, D]: cls_target [2, B, K], masked_target [2B*M, K'] (zero
+        rows at padding), both fp32."""
+        n_g = 2
+        B = cls.shape[0] // n_g
+        cls_logits = self.teacher["dino_head"](cls)
+        masked = self._gather_masked(patches, batch["mask_indices"])
+        masked_logits = self.teacher["ibot_head"](masked.reshape(-1, cls.shape[-1]))
+        valid = batch["mask_valid"].reshape(-1)
+        cls_t = sinkhorn_knopp(cls_logits, teacher_temp)
+        masked_t = sinkhorn_knopp(masked_logits, teacher_temp,
+                                  row_weights=valid.float())
+        return {
+            "cls_pre_head": cls.reshape(n_g, B, -1),
+            "patch_pre_head": patches,
+            "cls_target": cls_t.reshape(n_g, B, -1),
+            "masked_target": masked_t,
+        }
+
+    def get_student_output(self, batch: dict, plan: dict | None):
+        """One crop-packed backbone pass over global and local crops, then
+        the heads: (global_out, local_out) dicts as the reference's."""
+        g, l = batch["global_crops"], batch["local_crops"]
+        n_g, n_l = 2, self.n_local_crops
+        B = g.shape[0] // n_g
+        out = self.student["backbone"](g, batch["masks"], train=True,
+                                       plan=plan, local_crops=l)
+        g_cls, g_patch = out["x_norm_clstoken"], out["x_norm_patchtokens"]
+        l_cls = out["local_cls"]
+        masked = self._gather_masked(g_patch, batch["mask_indices"])
+        M = masked.shape[1]
+        masked_logits = self.student["ibot_head"](masked.reshape(-1, self.embed_dim))
+        # one DINO-head call for global and local CLS
+        cls_logits = self.student["dino_head"](torch.cat([g_cls, l_cls]))
+        K = cls_logits.shape[-1]
+        global_out = {
+            "cls_pre_head": g_cls.reshape(n_g, B, -1),
+            "patch_pre_head": g_patch,
+            "cls_after_head": cls_logits[: n_g * B].reshape(n_g, B, K),
+            "masked_patch_after_head": masked_logits.reshape(2 * B, M, -1),
+        }
+        local_out = {
+            "cls_pre_head": l_cls.reshape(n_l, B, -1),
+            "cls_after_head": cls_logits[n_g * B:].reshape(n_l, B, K),
+        }
+        return global_out, local_out
+
+    # ---------------- loss ----------------
+
+    def compute_losses(self, teacher_global, student_global, student_local,
+                       batch: dict, iteration: int = 0):
+        cfg = self.cfg
+        n_g, n_l = 2, self.n_local_crops
+        ignore_diag = bool(cfg.dino.global_ignore_diagonal)
+        g_terms = n_g * (n_g - 1) if ignore_diag else n_g * n_g
+        l_terms = n_g * n_l
+        g_scale = g_terms / (g_terms + l_terms)
+        l_scale = l_terms / (g_terms + l_terms)
+        local_w = 1.0
+        if self.dino_local_weight_schedule is not None:
+            sched = self.dino_local_weight_schedule
+            local_w = float(sched[min(iteration, len(sched) - 1)])
+        loss_dict = {}
+        g_rows = student_global["cls_after_head"]
+        B = g_rows.shape[1]
+        # one pair-CE over every student crop against the teacher targets
+        pair = dino_pair_ce(torch.cat([g_rows, student_local["cls_after_head"]]),
+                            teacher_global["cls_target"])
+        dino_local = pair_ce_to_loss(pair[n_g:], B)
+        dino_global = pair_ce_to_loss(pair[:n_g], B, ignore_diagonal=ignore_diag)
+        loss_dict["dino_local_crops_loss"] = dino_local
+        loss_dict["dino_global_crops_loss"] = dino_global
+        total = cfg.dino.loss_weight * l_scale * local_w * dino_local
+        total = total + cfg.dino.loss_weight * g_scale * dino_global
+        distributed = cfg.dino.koleo_loss_distributed
+        group = cfg.dino.koleo_distributed_loss_group_size if distributed else None
+        topk = cfg.dino.koleo_topk if distributed else 1
+        kol = sum(koleo_loss(c, topk=topk, group_size=group)
+                  for c in student_global["cls_pre_head"]) / n_g
+        loss_dict["koleo_loss"] = kol
+        total = total + cfg.dino.koleo_loss_weight * n_g * kol
+        ibot = ibot_patch_loss_masked(
+            student_global["masked_patch_after_head"].reshape(
+                -1, cfg.ibot.head_n_prototypes),
+            teacher_global["masked_target"],
+            batch["mask_weights"].reshape(-1), n_images=batch["masks"].shape[0])
+        loss_dict["ibot_loss"] = ibot
+        total = total + cfg.ibot.loss_weight * ibot
+        loss_dict["total_loss"] = total
+        return total, loss_dict
+
+    def forward(self, batch: dict, *, teacher_temp: float, iteration: int = 0,
+                plan: dict | None = None):
+        """(total loss, {loss name: scalar}) of one batch; gradients reach
+        only the student. ``plan``: the packed pass's drop-path plan."""
+        teacher_global = self.get_teacher_output(batch, teacher_temp)
+        student_global, student_local = self.get_student_output(batch, plan)
+        return self.compute_losses(teacher_global, student_global,
+                                   student_local, batch, iteration)
+
+    @torch.no_grad()
+    def update_ema(self, momentum: float) -> None:
+        """teacher <- m * teacher + (1 - m) * student, in place."""
+        ema_(list(self.teacher.parameters()), list(self.student.parameters()),
+             momentum)

@@ -1,7 +1,8 @@
-"""The port's kernels K1 (flash-attention forward) and K4 (LayerNorm
-forward): their plain versions against the JAX Pallas kernels run in
-interpret mode, the wrapper rules, and — on a card only — each CUDA
-kernel against its plain version.
+"""The port's kernels K1-K3 (flash attention forward, dQ and dK/dV) and
+K4-K5 (LayerNorm forward and backward): their plain versions against the
+JAX Pallas kernels run in interpret mode, the autograd Functions against
+``torch.autograd.gradcheck``, the wrapper rules, and — on a card only —
+each CUDA kernel against its plain version.
 
 The JAX side is imported inside the tests that use it, so the CUDA cases
 also run where only PyTorch is installed:
@@ -12,12 +13,23 @@ Tolerances (stated per case):
   and ``tests/test_fused_norm.py`` use the same scale): the two sides sum
   in other orders, and the port scales the logits where the JAX kernel
   scales q, which moves a logit by about one ulp;
+- fp32 attention gradients 5e-5, the JAX package's own gradient tolerance
+  (``tests/test_flash_attention.py``); fp32 LayerNorm gradients 1e-5
+  relative to the gradient's scale (sums over up to 300 rows);
 - bf16 outputs: one bf16 ulp of the larger magnitude, since both sides
   compute in fp32 and round once to bf16, and a last-ulp difference in
   fp32 can flip that rounding;
 - the bf16 attention kernel on the card: 2e-2 absolute, because it rounds
   the probabilities to bf16 before the P.V product (relative 2^-8 on
-  values below 1) where the plain version keeps them fp32.
+  values below 1) where the plain version keeps them fp32;
+- the bf16 backward kernels on the card: 2^-6 of the gradient's largest
+  magnitude, because they round P and dS to bf16 before the second
+  products (relative 2^-8 each, summed over up to N keys or rows with
+  both signs) and write the result in bf16 where the plain version keeps
+  fp32; fp32 backward kernels 1e-4 of that magnitude;
+- the LayerNorm backward kernel on the card: dx one bf16 ulp plus 2^-8 of
+  its row scale in bf16 and 1e-5 in fp32; dscale and dbias 1e-4 of their
+  magnitude (fp32 sums in another order).
 """
 
 import numpy as np
@@ -25,13 +37,18 @@ import pytest
 import torch
 
 from dinov3_tpu_torch.ops.flash_attention import (
+    FLASH_BWD_DKV,
+    FLASH_BWD_DQ,
     FLASH_FWD,
+    attention_bwd_plain,
     attention_plain,
     flash_attention,
 )
 from dinov3_tpu_torch.ops.fused_norm import (
+    LAYERNORM_BWD,
     LAYERNORM_FWD,
     fused_layernorm,
+    layernorm_bwd_plain,
     layernorm_plain,
 )
 
@@ -115,6 +132,86 @@ def test_layernorm_plain_matches_jax_pallas(shape, dtype):
         err = np.abs(_to_np(got) - want)
         assert (err <= bf16_ulp(np.maximum(np.abs(want), 1e-3))).all(), \
             err.max()
+
+
+@pytest.mark.parametrize("B,N,h,d,n_seg", [
+    (2, 128, 2, 64, 0),     # aligned, no segments
+    (2, 97, 2, 32, 3),      # ragged N with segment ids and a -1 pad tail
+    (1, 300, 2, 64, 5),     # several key blocks, segments
+])
+def test_attention_bwd_plain_matches_jax_pallas_vjp(B, N, h, d, n_seg):
+    """K2 and K3's plain version against ``jax.vjp`` of the Pallas flash
+    kernel (interpret mode), fp32, at the reference's own gradient
+    tolerance 5e-5."""
+    import jax
+    import jax.numpy as jnp
+
+    from dinov3_tpu.ops.flash_attention import flash_attention as jax_flash
+
+    q, k, v = _qkv(N + 2, B, N, h, d)
+    seg = _seg(N + 3, B, N, n_seg) if n_seg else None
+    ct = np.random.default_rng(N + 4).standard_normal(q.shape).astype(np.float32)
+    jseg = None if seg is None else jnp.asarray(seg)
+    out, vjp = jax.vjp(lambda a, b, c: jax_flash(a, b, c, interpret=True,
+                                                  seg=jseg),
+                       jnp.asarray(q), jnp.asarray(k), jnp.asarray(v))
+    want = vjp(jnp.asarray(ct))
+    tq, tk, tv = (torch.from_numpy(t) for t in (q, k, v))
+    tseg = None if seg is None else torch.from_numpy(seg)
+    o, lse = attention_plain(tq, tk, tv, tseg)
+    np.testing.assert_allclose(_to_np(o), np.asarray(out), atol=2e-5)
+    got = attention_bwd_plain(tq, tk, tv, o, lse, torch.from_numpy(ct), tseg)
+    for name, g, w in zip("qkv", got, want):
+        assert g.shape == (B, N, h, d) and g.dtype == torch.float32
+        np.testing.assert_allclose(_to_np(g), np.asarray(w), atol=5e-5,
+                                   rtol=5e-5, err_msg=f"d{name}")
+
+
+@pytest.mark.parametrize("shape", [(300, 128), (2, 7, 96), (33, 1024)])
+def test_layernorm_bwd_plain_matches_jax_pallas_vjp(shape):
+    """K5's plain version against ``jax.vjp`` of the Pallas LayerNorm
+    (``force=True``, interpret mode), fp32: dx at 1e-5, dscale and dbias
+    at 1e-5 of their magnitude (row sums in another order)."""
+    import jax
+    import jax.numpy as jnp
+
+    from dinov3_tpu.ops.fused_norm import fused_layernorm as jax_ln
+
+    rng = np.random.default_rng(shape[0])
+    D = shape[-1]
+    x = (rng.standard_normal(shape) * 3 + 1).astype(np.float32)
+    s = (rng.standard_normal(D) * 0.5 + 1).astype(np.float32)
+    b = rng.standard_normal(D).astype(np.float32)
+    g = rng.standard_normal(shape).astype(np.float32)
+    _, vjp = jax.vjp(lambda a, c, e: jax_ln(a, c, e, 1e-6, interpret=True,
+                                            force=True),
+                     jnp.asarray(x), jnp.asarray(s), jnp.asarray(b))
+    wdx, wds, wdb = (np.asarray(t) for t in vjp(jnp.asarray(g)))
+    dx, ds, db = layernorm_bwd_plain(torch.from_numpy(x), torch.from_numpy(s),
+                                     torch.from_numpy(g))
+    assert dx.shape == shape and ds.shape == db.shape == (D,)
+    np.testing.assert_allclose(_to_np(dx), wdx, atol=1e-5, rtol=1e-5)
+    for got, want in ((ds, wds), (db, wdb)):
+        np.testing.assert_allclose(_to_np(got), want,
+                                   atol=1e-5 * np.abs(want).max(), rtol=1e-5)
+
+
+@pytest.mark.parametrize("with_seg", [False, True])
+def test_autograd_functions_pass_gradcheck_fp64(with_seg):
+    """The autograd Functions around K1-K3 and K4-K5, on CPU tensors
+    (their plain versions), against finite differences in fp64."""
+    g = torch.Generator().manual_seed(3)
+    q, k, v = (torch.randn(2, 9, 2, 4, generator=g, dtype=torch.float64,
+                           requires_grad=True) for _ in range(3))
+    seg = (torch.tensor([[0, 0, 0, 1, 1, 1, 1, -1, -1], [0] * 9],
+                        dtype=torch.int32) if with_seg else None)
+    assert torch.autograd.gradcheck(
+        lambda a, b, c: flash_attention(a, b, c, seg)[0], (q, k, v))
+    x = torch.randn(3, 5, 8, generator=g, dtype=torch.float64,
+                    requires_grad=True)
+    s, b = (torch.randn(8, generator=g, dtype=torch.float64,
+                        requires_grad=True) for _ in range(2))
+    assert torch.autograd.gradcheck(fused_layernorm, (x, s, b))
 
 
 # ---------------- wrapper rules ----------------
@@ -217,17 +314,16 @@ def test_layernorm_kernel_matches_plain(cuda_device, R, D, dtype, pdtype):
 
 @pytest.mark.cuda
 def test_cuda_wrappers_raise_instead_of_falling_back(cuda_device):
-    q = torch.zeros(1, 8, 2, 64, device=cuda_device, requires_grad=True)
-    with pytest.raises(NotImplementedError, match="training slice"):
-        flash_attention(q, q, q)
-    x = torch.zeros(4, 64, device=cuda_device, requires_grad=True)
-    with pytest.raises(NotImplementedError, match="training slice"):
-        fused_layernorm(x, torch.ones(64, device=cuda_device),
-                        torch.zeros(64, device=cuda_device))
-    empty = torch.zeros(0, 8, 2, 64, device=cuda_device)
-    before = FLASH_FWD.launches
-    assert flash_attention(empty, empty, empty)[0].shape == empty.shape
-    assert FLASH_FWD.launches == before  # an empty grid launches nothing
+    """CUDA inputs a kernel does not take raise; nothing falls back to the
+    plain versions, and empty grids launch nothing."""
+    empty = torch.zeros(0, 8, 2, 64, device=cuda_device, requires_grad=True)
+    before = (FLASH_FWD.launches, FLASH_BWD_DQ.launches, FLASH_BWD_DKV.launches)
+    out, _ = flash_attention(empty, empty, empty)
+    assert out.shape == empty.shape
+    out.sum().backward()
+    assert empty.grad.shape == empty.shape
+    assert (FLASH_FWD.launches, FLASH_BWD_DQ.launches,
+            FLASH_BWD_DKV.launches) == before  # empty grids launch nothing
     bad = torch.zeros(1, 8, 2, 32, device=cuda_device)  # no head_dim-32 kernel
     with pytest.raises(ValueError, match="head_dim"):
         flash_attention(bad, bad, bad)
@@ -235,3 +331,94 @@ def test_cuda_wrappers_raise_instead_of_falling_back(cuda_device):
     with pytest.raises(ValueError, match="widths"):
         fused_layernorm(wide, torch.ones(8192, device=cuda_device),
                         torch.zeros(8192, device=cuda_device))
+    x = torch.zeros(4, 64, device=cuda_device, dtype=torch.float16)
+    with pytest.raises(ValueError, match="bf16 or fp32"):
+        fused_layernorm(x, torch.ones(64, device=cuda_device),
+                        torch.zeros(64, device=cuda_device))
+
+
+def _bwd_tol(want: np.ndarray, dtype) -> float:
+    mag = max(float(np.abs(want).max()), 1e-6)
+    return (2.0 ** -6 if dtype == torch.bfloat16 else 1e-4) * mag
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,N,h,d,dtype,n_seg,v_view", [
+    (81, 197, 16, 64, "bfloat16", 5, True),   # the training shape, v a view
+    (2, 201, 3, 64, "bfloat16", 0, False),     # ragged, no segments
+    (1, 130, 2, 128, "bfloat16", 3, False),    # head_dim 128
+    (2, 97, 2, 64, "float32", 3, True),
+    (1, 200, 2, 128, "float32", 0, False),
+])
+def test_flash_bwd_kernels_match_plain(cuda_device, B, N, h, d, dtype, n_seg,
+                                       v_view):
+    """K2 and K3 through the autograd Function against the plain backward
+    on the same inputs and the kernels' own O and LSE; two runs give the
+    same bits (no atomics)."""
+    dt = getattr(torch, dtype)
+    q, k, v = (torch.from_numpy(t).to(cuda_device, dt)
+               for t in _qkv(N + 5, B, N, h, d))
+    if v_view:
+        fused = torch.cat([q, k, v], dim=2).reshape(B, N, 3 * h * d)
+        v = fused[..., 2 * h * d:].reshape(B, N, h, d)
+    seg = (torch.from_numpy(_seg(N, B, N, n_seg)).to(cuda_device)
+           if n_seg else None)
+    ct = torch.from_numpy(_qkv(N + 6, B, N, h, d)[0]).to(cuda_device, dt)
+    grads = []
+    for _ in range(2):
+        leaves = [t.detach().clone().requires_grad_() for t in (q, k, v)]
+        before = (FLASH_BWD_DQ.launches, FLASH_BWD_DKV.launches)
+        out, lse = flash_attention(*leaves, seg)
+        (out.float() * ct.float()).sum().backward()
+        torch.cuda.synchronize()
+        assert (FLASH_BWD_DQ.launches, FLASH_BWD_DKV.launches) == \
+            (before[0] + 1, before[1] + 1)
+        grads.append([t.grad for t in leaves])
+    for a, b in zip(*grads):
+        assert torch.equal(a, b)
+    want = attention_bwd_plain(q, k, v, out.detach(), lse, ct, seg)
+    for name, got, w in zip("qkv", grads[0], want):
+        assert got.dtype == dt and got.shape == q.shape
+        w = _to_np(w)
+        np.testing.assert_allclose(_to_np(got), w, atol=_bwd_tol(w, dt),
+                                   err_msg=f"d{name}")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("R,D,dtype,pdtype", [
+    (22852, 1024, "bfloat16", "float32"),   # the training shape
+    (1000, 96, "bfloat16", "float32"),       # width below one CTA
+    (37, 64, "float32", "float32"),
+    (3, 4096, "float32", "bfloat16"),        # widest instance
+])
+def test_layernorm_bwd_kernel_matches_plain(cuda_device, R, D, dtype, pdtype):
+    g = torch.Generator().manual_seed(R)
+    x = (torch.randn(R, D, generator=g) * 3 + 1).to(cuda_device, getattr(torch, dtype))
+    s = (torch.randn(D, generator=g) * 0.5 + 1).to(cuda_device, getattr(torch, pdtype))
+    dy = torch.randn(R, D, generator=g).to(cuda_device, getattr(torch, dtype))
+    runs = []
+    for _ in range(2):
+        xs = x.clone().requires_grad_()
+        ss = s.clone().requires_grad_()
+        bs = torch.zeros_like(s, requires_grad=True)
+        before = LAYERNORM_BWD.launches
+        fused_layernorm(xs, ss, bs).backward(dy)
+        torch.cuda.synchronize()
+        assert LAYERNORM_BWD.launches == before + 1
+        runs.append((xs.grad, ss.grad, bs.grad))
+    for a, b in zip(*runs):
+        assert torch.equal(a, b)
+    dx, ds, db = runs[0]
+    wdx, wds, wdb = (_to_np(t) for t in layernorm_bwd_plain(x, s, dy))
+    assert dx.dtype == x.dtype and ds.dtype == db.dtype == s.dtype
+    if dtype == "float32":
+        np.testing.assert_allclose(_to_np(dx), wdx, atol=1e-5, rtol=1e-5)
+    else:
+        row = np.abs(wdx).max(axis=-1, keepdims=True)
+        err = np.abs(_to_np(dx) - wdx)
+        assert (err <= bf16_ulp(wdx) + 2.0 ** -8 * row).all(), err.max()
+    for got, want in ((ds, wds), (db, wdb)):
+        tol = 1e-4 * np.abs(want).max()
+        if pdtype == "bfloat16":
+            tol += float(bf16_ulp(np.abs(want).max()))
+        np.testing.assert_allclose(_to_np(got), want, atol=tol)

@@ -44,8 +44,9 @@ def test_default_config_copy_equals_the_jax_one():
 
 
 def test_config_loader_resolves_the_jax_tree():
-    """Same run YAML and overrides -> the same tree, except the learning
-    rate the JAX loader rescales by the device count (training only)."""
+    """Same run YAML and overrides -> the same tree, the learning rate
+    scaled by the same global batch: the port's loader given the device
+    count the JAX loader sees."""
     from dinov3_tpu.configs import load_config as jax_load
     from dinov3_tpu.configs.config import (
         continuous_packing_wished,
@@ -59,12 +60,14 @@ def test_config_loader_resolves_the_jax_tree():
     run = REPO / "configs" / "train" / "vitl16_im1k.yaml"
     overrides = ["serve.rows=2", "student.n_storage_tokens=4",
                  "serve.patch_features=true"]
-    ours = load_config(run, overrides).to_dict()
-    theirs = jax_load(run, overrides).to_dict()
-    theirs.pop("_lr_scaled")
-    ours["optim"].pop("lr")
-    theirs["optim"].pop("lr")
-    assert ours == theirs
+    for extra in ([], ["optim.scaling_rule=linear_wrt_256",
+                       "parallel.tensor=2"]):
+        ours = load_config(run, overrides + extra,
+                           n_devices=jax.device_count()).to_dict()
+        theirs = jax_load(run, overrides + extra).to_dict()
+        assert ours == theirs
+    one = load_config(run, overrides)  # one card: lr * 4 * sqrt(64 / 1024)
+    assert one.optim.lr == pytest.approx(1e-3 * 4 * (64 / 1024) ** 0.5)
     cfg = load_config(run, overrides)
     assert tc.continuous_packing_wished(cfg) == continuous_packing_wished(cfg)
     assert tc.serve_patch_features_wished(cfg)
