@@ -10,9 +10,12 @@ drives the port's serve path and its training step on the card:
 A. environment: torch, CUDA and nvcc versions, the card's name and power
    limit, the kernel build time;
 B. each kernel against its plain PyTorch version on the card, at the
-   serve path's shapes and at edge shapes, with its time, the plain
-   version's time, one PyTorch library call's time (a yardstick the port
-   never calls) and the least time the card could take (``bound_ms``);
+   serve path's shapes, the training step's shapes and edge shapes, with
+   its time (warm, and cold: rotating over copies of the inputs larger
+   than the 50 MB L2 cache), the plain version's time, one PyTorch
+   library call's time (a yardstick the port never calls) and the least
+   time the card could take (``bound_ms``); K1's tile schedule kernel
+   against its plain twin, bitwise, with the share of key tiles visited;
 C. the serve path at ViT-L/16 full width (``configs/train/vitl16_im1k.yaml``:
    24 blocks, width 1024, packs of 4 x 2050 tokens) with seeded random
    weights: 64 ragged requests through ``build_serve_engine`` → flush;
@@ -46,6 +49,7 @@ from __future__ import annotations
 
 import copy
 import gc
+import itertools
 import json
 import os
 import subprocess
@@ -58,6 +62,7 @@ REPO = os.path.dirname(os.path.abspath(__file__))
 HBM_BYTES_S = 3.35e12       # H100 SXM device memory rate
 BF16_TC_FLOP_S = 989e12     # H100 SXM dense bf16 tensor-core peak
 FP32_FLOP_S = 67e12         # H100 SXM fp32 outside the tensor cores
+L2_BYTES = 50 * 2 ** 20     # H100 L2 cache
 # the mixed_ragged traffic bands of scripts/bench_serve.py:
 # (probability, (min_px, max_px)), H and W drawn on the patch grid
 MIXED_RAGGED = [(0.70, (96, 256)), (0.20, (208, 320)), (0.10, (336, 512))]
@@ -111,8 +116,24 @@ def make_mix(rng, bands, n: int, grid: int) -> list:
     return out
 
 
+def cold_ms(fn, inputs: list, iters: int = 20) -> float:
+    """Mean device time of fn(*inputs[i]) over iters launches, rotating
+    over the copies in inputs: with copies that together exceed the L2
+    cache, each launch finds its inputs in device memory."""
+    sets = itertools.cycle(inputs)
+    return cuda_ms(lambda: fn(*next(sets)), iters)
+
+
+def copies_past_l2(nbytes: int) -> int:
+    """Copies of a call's inputs that together hold twice the L2 cache."""
+    return max(2, -(-2 * L2_BYTES // max(nbytes, 1)) + 1)
+
+
 def cuda_ms(fn, iters: int, warmup: int = 2) -> float:
-    """Mean device time of fn() over iters launches, by CUDA events."""
+    """Mean device time of fn() over iters launches, by CUDA events. A
+    spin kernel holds the stream while the host enqueues the launches, so
+    they run back to back and a call whose Python wrapper takes longer
+    than its kernel is timed by its kernel, not by its wrapper."""
     import torch
 
     for _ in range(warmup):
@@ -120,6 +141,14 @@ def cuda_ms(fn, iters: int, warmup: int = 2) -> float:
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
     torch.cuda.synchronize()
+    host_s = []  # enqueue time of one call, the slowest of three
+    for _ in range(3):
+        t0 = time.perf_counter()
+        fn()
+        host_s.append(time.perf_counter() - t0)
+        torch.cuda.synchronize()
+    # at most 2e9 cycles a second: the spin outlasts four times the enqueueing
+    torch.cuda._sleep(int(min(4 * iters * max(host_s) + 2e-3, 2.0) * 2e9))
     start.record()
     for _ in range(iters):
         fn()
@@ -202,13 +231,24 @@ def flash_bound(seg, B, N, H, D) -> tuple[float, str]:
 
 
 def check_flash(q, k, v, seg, label, time_it=False) -> dict:
+    """K1 against attention_plain (O within FLASH_BF16_TOL in bf16, 2e-5 in
+    fp32; LSE within 10x that), run twice for the same bits. Timed: warm
+    and cold ms, plain and library ms, the bound, and the share of key
+    tiles the schedule visits (1 without segment ids)."""
     import torch
     import torch.nn.functional as F
 
-    from dinov3_tpu_torch.ops.flash_attention import attention_plain, flash_attention
+    from dinov3_tpu_torch.ops.flash_attention import (
+        FWD_TILES,
+        attention_plain,
+        flash_attention,
+        flash_tile_schedule,
+    )
 
     out, lse = flash_attention(q, k, v, seg)
+    again, _ = flash_attention(q, k, v, seg)
     torch.cuda.synchronize()
+    check(torch.equal(out, again), f"K1 {label}: two runs differ")
     want, want_lse = attention_plain(q, k, v, seg)
     err = (out.float() - want.float()).abs().max().item()
     lse_err = (lse - want_lse).abs().max().item()
@@ -220,7 +260,20 @@ def check_flash(q, k, v, seg, label, time_it=False) -> dict:
     row = {"max_abs_err": err}
     if time_it:
         B, N, H, D = q.shape
+        row["visited_share"] = 1.0
+        if seg is not None:
+            tiles, counts = flash_tile_schedule(seg, *FWD_TILES[q.dtype])
+            row["visited_share"] = counts.sum().item() / tiles.numel()
         row["ms"] = cuda_ms(lambda: flash_attention(q, k, v, seg), 20)
+        # cold: copies of q, k and the tensor v views, past the L2 cache
+        vbase = v if v._base is None else v._base
+        nbytes = (q.numel() + k.numel() + vbase.numel()) * q.element_size()
+        sets = [(q.clone(), k.clone(),
+                 v if i == 0 else vbase.clone().as_strided(v.shape, v.stride(),
+                                                           v.storage_offset()))
+                for i in range(copies_past_l2(nbytes))]
+        row["cold_ms"] = cold_ms(lambda a, b, c: flash_attention(a, b, c, seg), sets)
+        del sets
         row["plain_ms"] = cuda_ms(lambda: attention_plain(q, k, v, seg), 3, 1)
         # yardstick: one library call on the same inputs, with the
         # block-diagonal mask as a boolean [B, 1, N, N] plane
@@ -234,10 +287,11 @@ def check_flash(q, k, v, seg, label, time_it=False) -> dict:
         lib_err = (lib.transpose(1, 2).float() - want.float()).abs().max().item()
         row["bound_ms"], row["bound_by"] = flash_bound(
             None if seg is None else seg.cpu().numpy(), B, N, H, D)
-        print(f"[B] K1 {label}: kernel {row['ms']:.4f} ms  plain "
-              f"{row['plain_ms']:.4f} ms  library {row['library_ms']:.4f} ms "
-              f"(library max err {lib_err:.3e})  bound {row['bound_ms']:.4f} ms "
-              f"({row['bound_by']})")
+        print(f"[B] K1 {label}: kernel {row['ms']:.4f} ms (cold "
+              f"{row['cold_ms']:.4f})  plain {row['plain_ms']:.4f} ms  library "
+              f"{row['library_ms']:.4f} ms (library max err {lib_err:.3e})  bound "
+              f"{row['bound_ms']:.4f} ms ({row['bound_by']})  key tiles visited "
+              f"{row['visited_share']:.4f}")
     return row
 
 
@@ -261,13 +315,19 @@ def check_layernorm(x, s, b, label, time_it=False) -> dict:
     if time_it:
         R, D = x.shape
         row["ms"] = cuda_ms(lambda: fused_layernorm(x, s, b), 50)
+        sets = [(x.clone(),) for _ in range(copies_past_l2(x.numel() * x.element_size()))]
+        row["cold_ms"] = cold_ms(lambda t: fused_layernorm(t, s, b), sets, 50)
+        del sets
         row["plain_ms"] = cuda_ms(lambda: layernorm_plain(x, s, b), 20)
+        # F.layer_norm takes scale and bias in x's dtype
+        sl, bl = s.to(x.dtype), b.to(x.dtype)
         row["library_ms"] = cuda_ms(
-            lambda: F.layer_norm(x, (D,), s, b, eps=1e-6), 50)
+            lambda: F.layer_norm(x, (D,), sl, bl, eps=1e-6), 50)
         nbytes = 2 * R * D * x.element_size() + 2 * D * s.element_size()
         # sums, centring, square, scale, shift: ~8 operations an element
         row["bound_ms"], row["bound_by"] = bound(nbytes, 8 * R * D, FP32_FLOP_S)
-        print(f"[B] K4 {label}: kernel {row['ms']:.4f} ms  plain "
+        print(f"[B] K4 {label}: kernel {row['ms']:.4f} ms (cold "
+              f"{row['cold_ms']:.4f})  plain "
               f"{row['plain_ms']:.4f} ms  library {row['library_ms']:.4f} ms  "
               f"bound {row['bound_ms']:.4f} ms ({row['bound_by']})")
     return row
@@ -306,15 +366,72 @@ def phase_b(cfg) -> dict:
                 randn(2, 333, 4, 64, dtype=torch.float32), None,
                 "[2x4, 333, 64] fp32")
 
+    # K1 at the training step's shapes: the teacher's [64 x 16, 197, 64]
+    # with no segments, one student block's [81 x 16, 197, 64] with the
+    # packed layout's ids after a drop-path subset; v a view of qkv
+    train = {}
+    for key, rows, tseg in (("teacher", 2 * TRAIN_B, None),
+                            ("student", None, train_attention_seg())):
+        tseg = None if tseg is None else torch.from_numpy(tseg).to(dev)
+        rows = rows if tseg is None else tseg.shape[0]
+        tqkv = randn(rows, 197, 3 * H * D)
+        tq, tk, tv = (tqkv[..., i * H * D:(i + 1) * H * D].reshape(rows, 197, H, D)
+                      for i in range(3))
+        train[key] = check_flash(
+            tq.contiguous(), tk.contiguous(), tv, tseg,
+            f"train {key} [{rows}x{H}, 197, {D}] bf16 {'seg' if key == 'student' else 'no seg'}",
+            time_it=True)
+        del tqkv, tq, tk, tv
+    k1["train_shapes"] = train
+    check_schedule(seg)
+
     # K4 at the serve shape: [4 * 2050, 1024] bf16 with bf16 serving params
     x = randn(R * N, 1024) * 3 + 1
     s, b = randn(1024) * 0.5 + 1, randn(1024)
     k4 = check_layernorm(x, s, b, f"serve plane [{R * N}, 1024] bf16",
                          time_it=True)
+    # K4 at a student block's norm in the training step: [81 x 197, 1024]
+    # bf16 rows with the fp32 master scale and bias
+    k4["train_shapes"] = {"student": check_layernorm(
+        randn(81 * 197, 1024) * 3 + 1, s.float(), b.float(),
+        "train student block [15957, 1024] bf16, fp32 params", time_it=True)}
     check_layernorm(randn(1003, 1024), s, b, "ragged rows [1003, 1024] bf16")
+    check_layernorm(randn(50, 2048), s.repeat(2), b.repeat(2), "[50, 2048] bf16")
+    check_layernorm(randn(9, 4096), s.repeat(4), b.repeat(4),
+                    "[9, 4096] bf16 (general path)")
     check_layernorm(randn(77, 1024, dtype=torch.float32),
                     s.float(), b.float(), "[77, 1024] fp32")
     return {"K1": k1, "K4": k4}
+
+
+def check_schedule(serve_seg) -> None:
+    """K1's schedule kernel against its plain twin, bitwise, on the serve
+    pack, the training seg plane, and shuffled ids with negative ones and
+    an all-pad row; prints the share of key tiles each visits."""
+    import torch
+
+    from dinov3_tpu_torch.ops.flash_attention import (
+        FWD_TILES,
+        flash_tile_schedule,
+        flash_tile_schedule_plain,
+    )
+
+    rng = np.random.default_rng(4)
+    shuffled = rng.integers(-3, 40, (6, 1000)).astype(np.int32)
+    shuffled[2] = -1
+    planes = (("serve pack", serve_seg.cpu()),
+              ("train plane", torch.from_numpy(train_attention_seg())),
+              ("shuffled ids, negatives, an all-pad row", torch.from_numpy(shuffled)))
+    for label, seg in planes:
+        for blocks in sorted(set(FWD_TILES.values())):
+            got = flash_tile_schedule(seg.to("cuda"), *blocks)
+            torch.cuda.synchronize()
+            want = flash_tile_schedule_plain(seg, *blocks)
+            same = all(torch.equal(g.cpu(), w) for g, w in zip(got, want))
+            print(f"[B] K1 schedule {label} {tuple(seg.shape)} tiles {blocks}: "
+                  f"bitwise {same}, key tiles visited "
+                  f"{want[1].sum().item() / want[0].numel():.4f}")
+            check(same, f"K1 schedule {label} {blocks} differs from its plain twin")
 
 
 # ---------------------------------------------------------------- phase C
@@ -435,7 +552,7 @@ def profile_pack(engine, images) -> None:
         t = e.time_range.elapsed_us() / 1e3
         name = e.name
         low = name.lower()
-        if "flash_fwd" in low:
+        if "flash_fwd" in low or "flash_tile_schedule" in low:  # K1 and its schedule
             key = "K1 flash_fwd"
         elif "layernorm_fwd" in low:
             key = "K4 layernorm_fwd"
@@ -833,17 +950,18 @@ def profile_step(setup, state, dbatch) -> None:
     if not events:
         print("[E] profile: no device events recorded (device time not measured)")
         return
-    classes = (("K1 flash_fwd", "flash_fwd"), ("K2 flash_bwd_dq", "flash_bwd_dq"),
-               ("K3 flash_bwd_dkv", "flash_bwd_dkv"),
-               ("K4 layernorm_fwd", "layernorm_fwd"),
-               ("K5 layernorm_bwd", "layernorm_bwd"))
+    classes = (("K1 flash_fwd", ("flash_fwd", "flash_tile_schedule")),
+               ("K2 flash_bwd_dq", ("flash_bwd_dq",)),
+               ("K3 flash_bwd_dkv", ("flash_bwd_dkv",)),
+               ("K4 layernorm_fwd", ("layernorm_fwd",)),
+               ("K5 layernorm_bwd", ("layernorm_bwd",)))
     buckets = {name: 0.0 for name, _ in classes}
     buckets.update({"gemm": 0.0, "memcpy": 0.0, "elementwise/other": 0.0})
     by_name: dict = {}
     for e in events:
         t = e.time_range.elapsed_us() / 1e3
         low = e.name.lower()
-        key = next((name for name, tag in classes if tag in low), None)
+        key = next((name for name, tags in classes if any(tag in low for tag in tags)), None)
         if key is None:
             if any(w in low for w in ("gemm", "xmma", "cutlass", "nvjet")):
                 key = "gemm"
@@ -987,6 +1105,7 @@ def main() -> int:
             "max_abs_err": r["max_abs_err"], "ms": r["ms"],
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
             "bound_by": r["bound_by"], "library_ms": r["library_ms"],
+            **{k: r[k] for k in ("cold_ms", "visited_share", "train_shapes") if k in r},
         })
     print(f"[smoke] train step {step['ms']:.1f} ms, "
           f"{TRAIN_B / step['ms'] * 1e3:.2f} img/s, peak {step['peak_gib']:.2f} GiB")

@@ -8,7 +8,9 @@ built when this module is imported: a kernel is built at its first
 launch, or all of them at once, in parallel, by ``build_kernels``.
 
 Each ``CudaKernel`` keeps ``launches``, the number of launches its wrapper
-made, so a run can show which kernels its path went through.
+made, so a run can show which kernels its path went through. A second C
+entry point of the same source names the first as ``built_by`` and loads
+its library.
 """
 
 from __future__ import annotations
@@ -38,10 +40,12 @@ def _nvcc() -> str:
 class CudaKernel:
     """One kernel: its source, its built library and its launch count."""
 
-    def __init__(self, name: str, source: str, argtypes: list):
+    def __init__(self, name: str, source: str, argtypes: list,
+                 built_by: CudaKernel | None = None):
         self.name = name
         self.source = _CSRC / source
         self.argtypes = argtypes
+        self.built_by = built_by
         self.launches = 0
         self.build_log = ""
         self._fn = None
@@ -49,6 +53,8 @@ class CudaKernel:
 
     @property
     def library(self) -> Path:
+        if self.built_by is not None:
+            return self.built_by.library
         digest = hashlib.sha1(self.source.read_bytes()
                               + " ".join(NVCC_FLAGS).encode()).hexdigest()[:12]
         return BUILD_DIR / f"lib{self.name}-{digest}.so"
@@ -59,7 +65,7 @@ class CudaKernel:
         return self.library.with_suffix(f".{os.getpid()}.tmp")
 
     def _start_build(self) -> subprocess.Popen | None:
-        if self.library.exists():
+        if self.built_by is not None or self.library.exists():
             return None
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
         cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(self._tmp_library()),
@@ -77,7 +83,7 @@ class CudaKernel:
     def fn(self):
         """The loaded C entry point (built first if needed)."""
         if self._fn is None:
-            build_kernels([self])
+            build_kernels([self.built_by or self])
             lib = ctypes.CDLL(str(self.library))
             fn = getattr(lib, f"dinov3_{self.name}")
             fn.argtypes = self.argtypes

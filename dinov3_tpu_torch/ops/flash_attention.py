@@ -16,6 +16,13 @@ take -1e30. The segment ids get no gradient.
 whose forward and backward take the plain versions (``attention_plain``,
 ``attention_bwd_plain``) for CPU tensors and launch the kernels for CUDA
 tensors, or raise.
+
+With segment ids, K1 first builds a tile schedule: for each (batch row,
+q tile) the ascending list of the key tiles it can meet, from each tile's
+min and max id >= 0 and whether it holds a negative id, and walks only
+those (a skipped tile's logits are all masked, so skipping changes no
+result). ``flash_tile_schedule`` launches that schedule kernel alone;
+``flash_tile_schedule_plain`` is its plain twin.
 """
 
 from __future__ import annotations
@@ -31,8 +38,10 @@ NEG_INF = -1e30
 _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 FLASH_FWD = CudaKernel(
     "flash_fwd", "flash_fwd.cu",
-    [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
-     _L, _L, _L, _L, _L, _L, _L, _L, _L, ctypes.c_float, _P])
+    [_P] * 6 + [_I] * 2 + [_P] * 2 + [_I] * 5 + [_L] * 9 + [ctypes.c_float, _P])
+FLASH_TILE_SCHEDULE = CudaKernel(
+    "flash_tile_schedule", "flash_fwd.cu", [_P] * 3 + [_I] * 4 + [_P],
+    built_by=FLASH_FWD)
 FLASH_BWD_DQ = CudaKernel(
     "flash_bwd_dq", "flash_bwd_dq.cu",
     [_P] * 9 + [_I] * 5 + [_L] * 15 + [ctypes.c_float, _P])
@@ -40,6 +49,8 @@ FLASH_BWD_DKV = CudaKernel(
     "flash_bwd_dkv", "flash_bwd_dkv.cu",
     [_P] * 9 + [_I] * 5 + [_L] * 12 + [ctypes.c_float, _P])
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
+# K1's (q tile, key tile) sizes: its schedule is built for these
+FWD_TILES = {torch.bfloat16: (64, 64), torch.float32: (64, 32)}
 
 
 def _compute_dtype(q: torch.Tensor) -> torch.dtype:
@@ -129,20 +140,90 @@ def _check_rows(name, t):
             "aligned for the bf16 kernels")
 
 
-def _seg_ptr(seg):
-    return seg.data_ptr() if seg is not None else None
+def _ptr(t):
+    return t.data_ptr() if t is not None else None
+
+
+def _tile_summary(seg, block):
+    """Per tile of ``block`` tokens of each row of seg [B, N]: (min id >= 0,
+    max id >= 0, holds a negative id), int64; a tile without ids >= 0 has
+    the empty range (2^31 - 1, -1)."""
+    B, N = seg.shape
+    n = -(-N // block)
+    ids = torch.zeros((B, n * block), dtype=torch.int64, device=seg.device)
+    ids[:, :N] = seg
+    real = torch.arange(n * block, device=seg.device) < N
+    nonneg = real & (ids >= 0)
+    lo = torch.where(nonneg, ids, 2 ** 31 - 1).view(B, n, block).amin(-1)
+    hi = torch.where(nonneg, ids, -1).view(B, n, block).amax(-1)
+    neg = (real & (ids < 0)).view(B, n, block).any(-1)
+    return lo, hi, neg
+
+
+def flash_tile_schedule_plain(seg, block_q=64, block_k=64):
+    """K1's tile schedule in plain tensor code, for seg [B, N] int32.
+
+    Returns (tiles [B, nQ, nK] int32: for each batch row and q tile the
+    ascending key tiles it meets, then -1; counts [B, nQ] int32: the list
+    lengths), nQ = ceil(N / block_q), nK = ceil(N / block_k). A q tile and
+    a key tile meet if their ranges of ids >= 0 overlap or both hold a
+    negative id: every key tile holding a key whose id equals a query's id
+    in the q tile is listed, whatever the int32 ids."""
+    q_lo, q_hi, q_neg = _tile_summary(seg, block_q)
+    k_lo, k_hi, k_neg = _tile_summary(seg, block_k)
+    meet = (q_neg[:, :, None] & k_neg[:, None, :]) | (
+        torch.maximum(q_lo[:, :, None], k_lo[:, None, :])
+        <= torch.minimum(q_hi[:, :, None], k_hi[:, None, :]))
+    counts = meet.sum(-1)
+    nk = meet.shape[-1]
+    # meeting tiles first, in ascending order (a stable sort on "not met")
+    order = torch.sort((~meet).to(torch.int8), dim=-1, stable=True).indices
+    listed = torch.arange(nk, device=seg.device) < counts[..., None]
+    tiles = torch.where(listed, order, -1)
+    return tiles.to(torch.int32), counts.to(torch.int32)
+
+
+def _schedule_buffers(seg, block_q, block_k):
+    B, N = seg.shape
+    nq, nk = -(-N // block_q), -(-N // block_k)
+    return (torch.empty((B, nq, nk), dtype=torch.int32, device=seg.device),
+            torch.empty((B, nq), dtype=torch.int32, device=seg.device))
+
+
+def flash_tile_schedule(seg, block_q=64, block_k=64):
+    """K1's tile schedule (see ``flash_tile_schedule_plain``): on a CUDA
+    seg it launches only the schedule kernel of ``csrc/flash_fwd.cu``; on a
+    CPU seg it is the plain version."""
+    if seg.dim() != 2 or seg.dtype != torch.int32 or not seg.is_contiguous():
+        raise ValueError(f"seg must be a contiguous int32 [B, N] tensor; got "
+                         f"{seg.dtype} {tuple(seg.shape)}")
+    if seg.device.type == "cpu":
+        return flash_tile_schedule_plain(seg, block_q, block_k)
+    tiles, counts = _schedule_buffers(seg, block_q, block_k)
+    if seg.numel():
+        FLASH_TILE_SCHEDULE.launch(
+            seg.data_ptr(), tiles.data_ptr(), counts.data_ptr(), *seg.shape,
+            block_q, block_k, stream_ptr(seg.device))
+    return tiles, counts
 
 
 def flash_fwd(q, k, v, seg=None):
-    """K1 on CUDA tensors: (O [B, N, h, d] contiguous, LSE [B, h, N])."""
+    """K1 on CUDA tensors: (O [B, N, h, d] contiguous, LSE [B, h, N]). With
+    seg, the one launch builds the tile schedule into buffers allocated
+    here, then walks it."""
     _check(q, k, v, seg)
     B, N, H, D = q.shape
     out = torch.empty((B, N, H, D), dtype=q.dtype, device=q.device)
     lse = torch.empty((B, H, N), dtype=torch.float32, device=q.device)
     if out.numel() == 0:  # an empty grid is not a launch
         return out, lse
+    block_q, block_k = FWD_TILES[q.dtype]
+    tiles = counts = None
+    if seg is not None:
+        tiles, counts = _schedule_buffers(seg, block_q, block_k)
     FLASH_FWD.launch(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), _seg_ptr(seg),
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), _ptr(seg),
+        _ptr(tiles), _ptr(counts), block_q, block_k,
         out.data_ptr(), lse.data_ptr(), B, N, H, D, _DTYPE_CODE[q.dtype],
         *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
         float(D) ** -0.5, stream_ptr(q.device))
@@ -175,7 +256,7 @@ def flash_bwd_dq(q, k, v, o, lse, do, seg=None):
         return dq, delta
     FLASH_BWD_DQ.launch(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), do.data_ptr(),
-        _seg_ptr(seg), lse.data_ptr(), delta.data_ptr(), dq.data_ptr(),
+        _ptr(seg), lse.data_ptr(), delta.data_ptr(), dq.data_ptr(),
         B, N, H, D, _DTYPE_CODE[q.dtype],
         *q.stride()[:3], *k.stride()[:3], *v.stride()[:3], *o.stride()[:3],
         *do.stride()[:3], float(D) ** -0.5, stream_ptr(q.device))
@@ -196,7 +277,7 @@ def flash_bwd_dkv(q, k, v, lse, delta, do, seg=None):
         return dk, dv
     FLASH_BWD_DKV.launch(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
-        _seg_ptr(seg), lse.data_ptr(), delta.data_ptr(), dk.data_ptr(),
+        _ptr(seg), lse.data_ptr(), delta.data_ptr(), dk.data_ptr(),
         dv.data_ptr(), B, N, H, D, _DTYPE_CODE[q.dtype],
         *q.stride()[:3], *k.stride()[:3], *v.stride()[:3], *do.stride()[:3],
         float(D) ** -0.5, stream_ptr(q.device))

@@ -26,12 +26,16 @@ from dinov3_tpu_torch.ops._cuda import CudaKernel, stream_ptr
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 LAYERNORM_FWD = CudaKernel(
-    "layernorm_fwd", "layernorm.cu", [_P, _P, _P, _P, _I, _I, ctypes.c_float, _I, _I, _P])
+    "layernorm_fwd", "layernorm.cu",
+    [_P, _P, _P, _P, _I, _I, ctypes.c_float, _I, _I, _I, _P])
 LAYERNORM_BWD = CudaKernel(
     "layernorm_bwd", "layernorm_bwd.cu",
     [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, ctypes.c_float, _I, _I, _P])
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 MAX_WIDTH = 4096
+# K4's vector path (one warp a row, 16-byte loads, the row in registers)
+# takes widths up to this; wider rows take the general path
+VEC_MAX_WIDTH = 2048
 # the backward's first pass runs at most this many CTAs (8 resident CTAs
 # of 256 threads on each of the H100's 132 SMs), each over a fixed run of
 # rows; the second pass sums their partials in CTA order
@@ -97,6 +101,20 @@ def _check(x, scale, bias=None):
         raise ValueError("x, scale and bias must lie on one device")
 
 
+def layernorm_vec_path(D: int, x_dtype: torch.dtype, addresses) -> int:
+    """K4's path for a row width D of x_dtype and the data addresses of x,
+    y, scale and bias: the 16-byte vectors each lane of a warp holds for
+    one row on the vector path (1, 2, 4, 8, or 16 for fp32 x), or 0 for
+    the general path. The vector path needs D a multiple of one vector (8
+    bf16 or 4 fp32 values), D <= VEC_MAX_WIDTH and every address 16-byte
+    aligned."""
+    per_vec = 128 // torch.finfo(x_dtype).bits
+    if D > VEC_MAX_WIDTH or D % per_vec or any(a % 16 for a in addresses):
+        return 0
+    per_lane = -(-D // (32 * per_vec))
+    return 1 << (per_lane - 1).bit_length()
+
+
 def layernorm_fwd(x, scale, bias, eps: float = 1e-6):
     """K4 on CUDA tensors: y over the [rows, D] view of a contiguous x."""
     _check(x, scale, bias)
@@ -104,10 +122,11 @@ def layernorm_fwd(x, scale, bias, eps: float = 1e-6):
     y = torch.empty_like(x)
     rows = x.numel() // D
     if rows:
+        ptrs = (x.data_ptr(), scale.data_ptr(), bias.data_ptr(), y.data_ptr())
         LAYERNORM_FWD.launch(
-            x.data_ptr(), scale.data_ptr(), bias.data_ptr(), y.data_ptr(),
-            rows, D, float(eps), _DTYPE_CODE[x.dtype],
-            _DTYPE_CODE[scale.dtype], stream_ptr(x.device))
+            *ptrs, rows, D, float(eps), _DTYPE_CODE[x.dtype],
+            _DTYPE_CODE[scale.dtype], layernorm_vec_path(D, x.dtype, ptrs),
+            stream_ptr(x.device))
     return y
 
 

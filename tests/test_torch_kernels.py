@@ -32,6 +32,9 @@ Tolerances (stated per case):
   magnitude (fp32 sums in another order).
 """
 
+import importlib.util
+from pathlib import Path
+
 import numpy as np
 import pytest
 import torch
@@ -40,9 +43,13 @@ from dinov3_tpu_torch.ops.flash_attention import (
     FLASH_BWD_DKV,
     FLASH_BWD_DQ,
     FLASH_FWD,
+    FLASH_TILE_SCHEDULE,
+    FWD_TILES,
     attention_bwd_plain,
     attention_plain,
     flash_attention,
+    flash_tile_schedule,
+    flash_tile_schedule_plain,
 )
 from dinov3_tpu_torch.ops.fused_norm import (
     LAYERNORM_BWD,
@@ -50,7 +57,10 @@ from dinov3_tpu_torch.ops.fused_norm import (
     fused_layernorm,
     layernorm_bwd_plain,
     layernorm_plain,
+    layernorm_vec_path,
 )
+
+REPO = Path(__file__).resolve().parent.parent
 
 
 def _qkv(seed, B, N, h, d):
@@ -69,6 +79,45 @@ def _seg(seed, B, N, n_seg):
         for s, (lo, hi) in enumerate(zip(np.r_[0, cuts[:-1]], cuts)):
             seg[b, lo:hi] = s
     return seg
+
+
+def _seg_kind(kind, seed, B, N):
+    """[B, N] int32 ids of one kind: ``runs`` (sorted runs and a -1 pad
+    tail, as the serve batcher lays a row out), ``shuffled`` (those ids in
+    random order), ``wide`` (a few ids spread over the int32 range,
+    negative ones included, in random order), ``allpad`` (runs with one
+    row of nothing but -1)."""
+    rng = np.random.default_rng(seed)
+    if kind == "wide":
+        ids = np.array([-2 ** 31, -7, -1, 0, 5, 123456789, 2 ** 31 - 1], np.int32)
+        return ids[rng.integers(0, len(ids), (B, N))]
+    seg = _seg(seed, B, N, min(4, N - 3)) if N > 4 else np.zeros((B, N), np.int32)
+    if kind == "shuffled":
+        seg = np.stack([rng.permutation(row) for row in seg])
+    if kind == "allpad":
+        seg[B // 2] = -1
+    return seg
+
+
+def _visited(seg, block_q, block_k):
+    """[B, N, N] bool: key j lies in a tile on the schedule list of query
+    i's q tile."""
+    tiles, counts = flash_tile_schedule_plain(seg, block_q, block_k)
+    B, N = seg.shape
+    nk = tiles.shape[-1]
+    listed = torch.zeros(B, tiles.shape[1], nk + 1, dtype=torch.bool)
+    listed.scatter_(2, torch.where(tiles < 0, nk, tiles).long(), True)
+    qt, kt = torch.arange(N) // block_q, torch.arange(N) // block_k
+    return listed[:, qt][:, :, kt]
+
+
+def _attention_on_schedule(q, k, v, seg, block_q=64, block_k=64):
+    """fp32 attention that, like K1, computes only the logits of the key
+    tiles on each q tile's schedule list (the rest count as masked)."""
+    keep = (seg[:, :, None] == seg[:, None, :]) & _visited(seg, block_q, block_k)
+    logits = torch.einsum("bqhd,bkhd->bhqk", q, k) * q.shape[-1] ** -0.5
+    logits = torch.where(keep[:, None], logits, logits.new_tensor(-1e30))
+    return torch.einsum("bhqk,bkhd->bqhd", torch.softmax(logits, -1), v)
 
 
 def bf16_ulp(x: np.ndarray) -> np.ndarray:
@@ -105,6 +154,124 @@ def test_flash_plain_matches_jax_pallas(B, N, h, d, n_seg):
     assert got.shape == (B, N, h, d) and lse.shape == (B, h, N)
     np.testing.assert_allclose(_to_np(got), np.asarray(want),
                                atol=2e-5, rtol=2e-5)
+    if seg is not None:  # K1 walks only its schedule's key tiles
+        on_schedule = _attention_on_schedule(
+            *(torch.from_numpy(t) for t in (q, k, v)), torch.from_numpy(seg))
+        np.testing.assert_allclose(_to_np(on_schedule), np.asarray(want),
+                                   atol=2e-5, rtol=2e-5)
+
+
+@pytest.mark.parametrize("kind", ["runs", "shuffled", "wide", "allpad"])
+@pytest.mark.parametrize("N", [37, 130, 300])
+def test_flash_on_schedule_matches_plain_and_jax_pallas(kind, N):
+    """Attention restricted to the schedule's key tiles (K1's bf16 and
+    fp32 tile sizes) equals the dense plain version and the JAX flash
+    kernel (Pallas, interpret mode) in fp32 at 2e-5, for sorted, shuffled,
+    int32-wide and all-pad segment ids, N below one tile and ragged."""
+    import jax.numpy as jnp
+
+    from dinov3_tpu.ops.flash_attention import flash_attention as jax_flash
+
+    q, k, v = _qkv(N + 7, 3, N, 2, 64)
+    seg = _seg_kind(kind, N, 3, N)
+    want = np.asarray(jax_flash(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
+                                interpret=True, seg=jnp.asarray(seg)))
+    tq, tk, tv, tseg = (torch.from_numpy(t) for t in (q, k, v, seg))
+    plain, _ = attention_plain(tq, tk, tv, tseg)
+    np.testing.assert_allclose(_to_np(plain), want, atol=2e-5, rtol=2e-5)
+    for block_q, block_k in FWD_TILES.values():
+        got = _attention_on_schedule(tq, tk, tv, tseg, block_q, block_k)
+        np.testing.assert_allclose(_to_np(got), want, atol=2e-5, rtol=2e-5)
+
+
+# ---------------- K1's tile schedule ----------------
+
+@pytest.mark.parametrize("kind", ["runs", "shuffled", "wide", "allpad"])
+@pytest.mark.parametrize("N", [1, 5, 63, 64, 197, 300])
+@pytest.mark.parametrize("blocks", [(128, 64), (64, 64), (64, 32), (16, 8), (8, 16)])
+def test_tile_schedule_is_conservative(kind, N, blocks):
+    """Every pair of tokens that meets (equal ids) has its key tile on the
+    list of its query's tile; each list is ascending without repeats, its
+    length is the count, and -1 fills the rest."""
+    block_q, block_k = blocks
+    seg = torch.from_numpy(_seg_kind(kind, 3 * N + block_k, 4, N))
+    tiles, counts = flash_tile_schedule(seg, block_q, block_k)  # CPU: plain
+    nq, nk = -(-N // block_q), -(-N // block_k)
+    assert tiles.shape == (4, nq, nk) and counts.shape == (4, nq)
+    assert tiles.dtype == counts.dtype == torch.int32
+    for b in range(4):
+        for i in range(nq):
+            c = int(counts[b, i])
+            row = tiles[b, i].tolist()
+            assert row[c:] == [-1] * (nk - c)
+            assert row[:c] == sorted(set(row[:c])) and all(0 <= j < nk for j in row[:c])
+    meet = seg[:, :, None] == seg[:, None, :]
+    assert not (meet & ~_visited(seg, block_q, block_k)).any()
+
+
+def test_tile_schedule_skips_disjoint_tiles():
+    """The summary is tight where ids are sorted runs: tiles whose ranges
+    of ids >= 0 do not overlap are skipped, and pad tiles meet only tiles
+    holding pad ids."""
+    seg = torch.tensor([[0] * 64 + [1] * 64 + [2] * 60 + [-1] * 4], dtype=torch.int32)
+    tiles, counts = flash_tile_schedule_plain(seg, 64, 64)
+    assert counts.tolist() == [[1, 1, 1]]
+    assert tiles.tolist() == [[[0, -1, -1], [1, -1, -1], [2, -1, -1]]]
+    seg[0, 60:70] = -1  # tiles 0 and 1 now both hold a pad id
+    tiles, counts = flash_tile_schedule_plain(seg, 64, 64)
+    assert tiles.tolist() == [[[0, 1, 2], [0, 1, 2], [0, 1, 2]]]
+
+
+def _load_chip_smoke():
+    spec = importlib.util.spec_from_file_location("chip_smoke", REPO / "chip_smoke.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def test_serve_pack_visited_share_is_pinned():
+    """The seeded mixed_ragged pack of ``chip_smoke.py`` (the port's own
+    batcher, 4 x 2050 tokens): with K1's 64 x 64 bf16 tiles the schedule
+    lists 1232 of the 4356 (q tile, key tile) pairs, 28.3 % (128 x 64
+    tiles would list 29.9 %); the training student block's seg plane
+    ([81, 197]) keeps 1080 of 1296, 83.3 % (88.9 %)."""
+    from dinov3_tpu_torch.configs import load_config
+
+    smoke = _load_chip_smoke()
+    cfg = load_config(REPO / "configs" / "train" / "vitl16_im1k.yaml")
+    assert FWD_TILES[torch.bfloat16] == (64, 64)
+    for seg, want in (
+            (smoke.serve_pack_seg(cfg), {(64, 64): (1232, 4356), (128, 64): (671, 2244)}),
+            (smoke.train_attention_seg(), {(64, 64): (1080, 1296), (128, 64): (576, 648)})):
+        for blocks, (listed, total) in want.items():
+            tiles, counts = flash_tile_schedule_plain(torch.from_numpy(seg), *blocks)
+            assert (int(counts.sum()), tiles.numel()) == (listed, total)
+
+
+@pytest.mark.parametrize("D,dtype,addresses,want", [
+    (1, torch.bfloat16, (0, 16), 0),         # not a whole 16-byte vector
+    (96, torch.bfloat16, (0, 16), 1),        # 12 vectors: one a lane
+    (1000, torch.bfloat16, (0, 16), 4),      # 125 vectors
+    (1024, torch.bfloat16, (0, 16), 4),      # the ViT-L width
+    (1024, torch.float32, (0, 16), 8),
+    (2048, torch.bfloat16, (0, 16), 8),      # the register cap
+    (2048, torch.float32, (0, 16), 16),
+    (4096, torch.bfloat16, (0, 16), 0),      # past the cap
+    (1000, torch.float32, (0, 16), 8),
+    (1024, torch.bfloat16, (0, 2), 0),       # a misaligned storage offset
+])
+def test_layernorm_path_choice(D, dtype, addresses, want):
+    assert layernorm_vec_path(D, dtype, addresses) == want
+
+
+def test_layernorm_path_choice_reads_storage_offsets():
+    """A contiguous x that starts one element into its storage is not
+    16-byte aligned and takes the general path."""
+    base = torch.zeros(4 * 1024 + 1, dtype=torch.bfloat16)
+    x = base[1:].view(4, 1024)
+    assert x.is_contiguous() and x.data_ptr() % 16 == 2
+    assert layernorm_vec_path(1024, x.dtype, (x.data_ptr(),)) == 0
+    assert layernorm_vec_path(1024, x.dtype, (base.data_ptr(),)) == 4
 
 
 @pytest.mark.parametrize("shape", [(300, 128), (2, 7, 96), (33, 1024)])
@@ -288,11 +455,55 @@ def test_flash_kernel_matches_plain(cuda_device, B, N, h, d, dtype, n_seg,
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["shuffled", "allpad", "wide"])
+def test_flash_kernel_walks_schedule_matches_plain(cuda_device, kind):
+    """K1 at the serve shape ([4 x 16, 2050, 64] bf16, v a view of the
+    fused qkv output) with shuffled ids, an all-pad row, or ids spread over
+    the int32 range, against the plain version (tolerances as above); two
+    runs give the same bits."""
+    B, N, h, d = 4, 2050, 16, 64
+    q, k, v = (torch.from_numpy(t).to(cuda_device, torch.bfloat16)
+               for t in _qkv(N, B, N, h, d))
+    fused = torch.cat([q, k, v], dim=2).reshape(B, N, 3 * h * d)
+    v = fused[..., 2 * h * d:].reshape(B, N, h, d)
+    seg = torch.from_numpy(_seg_kind(kind, N, B, N)).to(cuda_device)
+    out, lse = flash_attention(q, k, v, seg)
+    again, _ = flash_attention(q, k, v, seg)
+    torch.cuda.synchronize()
+    assert torch.equal(out, again)
+    want, want_lse = attention_plain(q, k, v, seg)
+    np.testing.assert_allclose(_to_np(out), _to_np(want), atol=2e-2, rtol=2e-2)
+    np.testing.assert_allclose(_to_np(lse), _to_np(want_lse), atol=2e-1, rtol=2e-2)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["runs", "shuffled", "wide", "allpad"])
+@pytest.mark.parametrize("N,blocks", [(2050, (64, 64)), (197, (64, 64)),
+                                      (333, (64, 32)), (5, (16, 8))])
+def test_tile_schedule_kernel_matches_plain_bitwise(cuda_device, kind, N, blocks):
+    seg = torch.from_numpy(_seg_kind(kind, N + 1, 5, N))
+    before = FLASH_TILE_SCHEDULE.launches
+    got = flash_tile_schedule(seg.to(cuda_device), *blocks)
+    torch.cuda.synchronize()
+    assert FLASH_TILE_SCHEDULE.launches == before + 1
+    for g, w in zip(got, flash_tile_schedule_plain(seg, *blocks)):
+        assert torch.equal(g.cpu(), w)
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("R,D,dtype,pdtype", [
     (8200, 1024, "bfloat16", "bfloat16"),   # serve shape
     (1000, 96, "bfloat16", "float32"),       # width below one CTA
     (37, 64, "float32", "float32"),
     (3, 4096, "float32", "bfloat16"),        # widest instance
+    (15957, 1024, "bfloat16", "float32"),    # a student block's norm
+    (1000, 96, "float32", "bfloat16"),
+    (77, 1000, "bfloat16", "bfloat16"),      # 125 vectors a row
+    (77, 1000, "float32", "float32"),
+    (50, 2048, "bfloat16", "float32"),       # the vector path's cap
+    (50, 2048, "float32", "float32"),
+    (9, 4096, "bfloat16", "bfloat16"),       # the general path
+    (9, 1001, "bfloat16", "float32"),        # not whole vectors
 ])
 def test_layernorm_kernel_matches_plain(cuda_device, R, D, dtype, pdtype):
     g = torch.Generator().manual_seed(R)
