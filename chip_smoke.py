@@ -24,16 +24,18 @@ C. the serve path at ViT-L/16 full width (``configs/train/vitl16_im1k.yaml``:
    and 50 LayerNorm launches a pack);
 D. one pack through a 2-block model at ViT-L width on the card (kernels)
    and on the CPU (plain versions), same weights, compared;
-B'. the backward kernels K2, K3 (flash attention dQ, dK/dV) and K5
-   (LayerNorm backward) against their plain versions at the training
-   step's shapes and at edge shapes, each run twice for bitwise
-   repeatability, with times, bounds and library yardsticks;
+B'. the backward kernels K2, K3 (flash attention dQ, dK/dV; K3 walking
+   the forward's tile schedule, with the share of q tiles it walks) and
+   K5 (LayerNorm backward, at a student block's norm and at all packed
+   rows) against their plain versions at the training step's shapes and
+   at edge shapes, each run twice for bitwise repeatability, with times,
+   bounds and library yardsticks;
 E. the SSL training step at ViT-L/16 full width and depth
    (``configs/train/vitl16_im1k.yaml`` at 32 images, materialized
    targets) through ``build_train_setup`` and its ``step_fn``: a warm-up
    step, then 5 timed steps with every loss finite, ms per step, img/s,
-   peak memory and the launches of K1-K5 pinned per step, and one step
-   profiled by kernel class;
+   peak memory and the launches of K1-K5 pinned per step, the shapes K5
+   runs at in one step, and one step profiled by kernel class;
 F. one training step of a 2-block ViT-L-width model (4096 prototypes,
    4 images, LayerScale 1) on the card and on the CPU from the same
    weights, batch and drop-path plan: loss terms, gradient norms and the
@@ -679,11 +681,15 @@ def check_flash_bwd(q, k, v, seg, label, time_it=False) -> dict:
 
     g = torch.Generator().manual_seed(q.shape[1])
     do = torch.randn(q.shape, generator=g).to(q.device, q.dtype)
-    out, lse = flash_fwd(q, k, v, seg)
+    out, lse, schedule = flash_fwd(q, k, v, seg)
+    # K3 walks K1's schedule where it reads one (bf16 with seg), as in the
+    # autograd Function
+    if q.dtype != torch.bfloat16:
+        schedule = None
     runs = []
     for _ in range(2):
         dq, delta = flash_bwd_dq(q, k, v, out, lse, do, seg)
-        dk, dv = flash_bwd_dkv(q, k, v, lse, delta, do, seg)
+        dk, dv = flash_bwd_dkv(q, k, v, lse, delta, do, seg, schedule)
         runs.append((dq, dk, dv))
     torch.cuda.synchronize()
     check(all(torch.equal(a, b) for a, b in zip(*runs)),
@@ -711,7 +717,12 @@ def check_flash_bwd(q, k, v, seg, label, time_it=False) -> dict:
         k2["bound_ms"], k2["bound_by"] = bound(
             6 * elt + 2 * rowb + segb, 6 * D * H * pairs, BF16_TC_FLOP_S)
         k3 = result["K3"]
-        k3["ms"] = cuda_ms(lambda: flash_bwd_dkv(q, k, v, lse, delta, do, seg), 20)
+        # the share of (key tile, q tile) pairs K3 walks: by the schedule's
+        # symmetry, the share of K1's (q tile, key tile) pairs
+        k3["walked_share"] = 1.0 if schedule is None else (
+            schedule[1].sum().item() / schedule[0].numel())
+        k3["ms"] = cuda_ms(
+            lambda: flash_bwd_dkv(q, k, v, lse, delta, do, seg, schedule), 20)
         # K3 reads q, k, v, dO, LSE and Delta, writes dK and dV; 4 products
         k3["bound_ms"], k3["bound_by"] = bound(
             6 * elt + 2 * rowb + segb, 8 * D * H * pairs, BF16_TC_FLOP_S)
@@ -736,7 +747,8 @@ def check_flash_bwd(q, k, v, seg, label, time_it=False) -> dict:
             r["plain_ms"], r["library_ms"] = plain, lib
         print(f"[B'] K2 {label}: kernel {k2['ms']:.4f} ms  bound {k2['bound_ms']:.4f} ms "
               f"({k2['bound_by']});  K3: kernel {k3['ms']:.4f} ms  bound "
-              f"{k3['bound_ms']:.4f} ms ({k3['bound_by']});  plain backward "
+              f"{k3['bound_ms']:.4f} ms ({k3['bound_by']}), q tiles walked "
+              f"{k3['walked_share']:.4f};  plain backward "
               f"{plain:.4f} ms, library backward (dQ+dK+dV) {lib:.4f} ms")
     return result
 
@@ -750,7 +762,11 @@ def check_layernorm_bwd(x, s, label, time_it=False) -> dict:
     import torch
     import torch.nn.functional as F
 
-    from dinov3_tpu_torch.ops.fused_norm import layernorm_bwd, layernorm_bwd_plain
+    from dinov3_tpu_torch.ops.fused_norm import (
+        layernorm_bwd,
+        layernorm_bwd_plain,
+        layernorm_vec_path,
+    )
 
     g = torch.Generator().manual_seed(x.shape[0])
     dy = torch.randn(x.shape, generator=g).to(x.device, x.dtype)
@@ -770,14 +786,16 @@ def check_layernorm_bwd(x, s, label, time_it=False) -> dict:
     p_err = max((ds.float() - wds.float()).abs().max().item(),
                 (db.float() - wdb.float()).abs().max().item())
     p_tol = 1e-4 * max(wds.float().abs().max().item(), wdb.float().abs().max().item())
-    print(f"[B'] K5 {label}: max|dx - plain| {err.max().item():.3e} "
+    R, D = x.shape
+    vec = layernorm_vec_path(D, x.dtype, (x.data_ptr(), dy.data_ptr(), dx.data_ptr()))
+    path = f"vector path, {vec} vectors a lane" if vec else "general path"
+    print(f"[B'] K5 {label} ({path}): max|dx - plain| {err.max().item():.3e} "
           f"({ratio:.3f} of its tolerance), max|dscale, dbias - plain| "
           f"{p_err:.3e} (tol {p_tol:.3e})")
     check(ratio <= 1.0, f"K5 {label}: dx disagrees")
     check(p_err <= p_tol, f"K5 {label}: dscale/dbias disagree")
     row = {"max_abs_err": max(err.max().item(), p_err)}
     if time_it:
-        R, D = x.shape
         row["ms"] = cuda_ms(lambda: layernorm_bwd(x, s, dy), 50)
         row["plain_ms"] = cuda_ms(lambda: layernorm_bwd_plain(x, s, dy), 10)
         # F.layer_norm takes scale and bias in x's dtype
@@ -830,18 +848,31 @@ def phase_b_bwd() -> dict:
     check_flash_bwd(randn(2, 150, 4, 64, dtype=f32), randn(2, 150, 4, 64, dtype=f32),
                     randn(2, 150, 4, 64, dtype=f32), seg[-2:, :150].contiguous(),
                     "[2x4, 150, 64] fp32 seg")
+    rng = np.random.default_rng(5)
+    shuffled = torch.from_numpy(rng.integers(-3, 6, (4, 201)).astype(np.int32)).to(dev)
+    check_flash_bwd(randn(4, 201, 4, 64), randn(4, 201, 4, 64), randn(4, 201, 4, 64),
+                    shuffled, "shuffled ids with negatives [4x4, 201, 64] bf16")
     pad = seg[-3:].clone()
     pad[0] = -1  # one row of nothing but pad tokens
     check_flash_bwd(randn(3, N, 4, 64), randn(3, N, 4, 64), randn(3, N, 4, 64),
                     pad, f"all-pad row [3x4, {N}, 64] bf16")
-    # K5 at the packed student rows: [116 x 197, 1024] bf16, fp32 scale
-    x = randn(116 * 197, 1024) * 3 + 1
+    # K5 at a student block's norms ([81 x 197, 1024] bf16 with the fp32
+    # master scale: 48 of a step's 50 launches, phase E) and at all the
+    # packed student rows ([116 x 197, 1024])
     s = (torch.randn(1024, generator=g) * 0.5 + 1).to(dev)
-    rows["K5"] = check_layernorm_bwd(x, s, "packed rows [22852, 1024] bf16",
-                                     time_it=True)
+    rows["K5"] = check_layernorm_bwd(
+        randn(81 * 197, 1024) * 3 + 1, s,
+        "train student block [15957, 1024] bf16, fp32 scale", time_it=True)
+    rows["K5"]["train_shapes"] = {"packed rows": check_layernorm_bwd(
+        randn(116 * 197, 1024) * 3 + 1, s, "packed rows [22852, 1024] bf16, fp32 scale",
+        time_it=True)}
     check_layernorm_bwd(randn(1003, 1024), s, "ragged rows [1003, 1024] bf16")
+    check_layernorm_bwd(randn(100, 1024), s, "fewer rows than CTAs [100, 1024] bf16")
     check_layernorm_bwd(randn(77, 96, dtype=f32), s[:96].contiguous(),
                         "[77, 96] fp32")
+    check_layernorm_bwd(randn(50, 2048), s.repeat(2), "[50, 2048] bf16")
+    check_layernorm_bwd(randn(9, 1000), s[:1000].contiguous(), "[9, 1000] bf16")
+    check_layernorm_bwd(randn(9, 4096), s.repeat(4), "[9, 4096] bf16 (general path)")
     return rows
 
 
@@ -925,8 +956,33 @@ def phase_e() -> tuple[dict, dict]:
           f"{max(times):.1f}), {TRAIN_B / np.mean(times) * 1e3:.2f} img/s, peak "
           f"memory {peak:.2f} GiB; launches per step {per_step}")
     check(per_step == STEP_LAUNCHES, f"launches per step {per_step} != {STEP_LAUNCHES}")
+    norm_bwd_shapes(setup, state, dbatch)
     profile_step(setup, state, dbatch)
     return launches, {"ms": float(np.mean(times)), "peak_gib": peak}
+
+
+def norm_bwd_shapes(setup, state, dbatch) -> None:
+    """The [rows, D] shapes K5 runs at in one training step (after the
+    counted steps): the autograd Function's call of ``layernorm_bwd`` is
+    wrapped for that one step to record its input shapes."""
+    from collections import Counter
+
+    import dinov3_tpu_torch.ops.fused_norm as fused_norm
+
+    seen = Counter()
+    inner = fused_norm.layernorm_bwd
+
+    def recording(x, *args, **kwargs):
+        seen[(x.numel() // x.shape[-1], x.shape[-1])] += 1
+        return inner(x, *args, **kwargs)
+
+    fused_norm.layernorm_bwd = recording
+    try:
+        setup.step_fn(state, dbatch, setup.scalars(state.step))
+    finally:
+        fused_norm.layernorm_bwd = inner
+    print("[E] K5 shapes in one step: " + ", ".join(
+        f"{n} x [{r}, {d}]" for (r, d), n in sorted(seen.items(), key=lambda kv: -kv[1])))
 
 
 def profile_step(setup, state, dbatch) -> None:

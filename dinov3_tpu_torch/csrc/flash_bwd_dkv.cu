@@ -16,30 +16,71 @@
 // written here.
 //
 // What bounds it: the four products over the segment pairs (S, dO V^T,
-// P^T dO and dS^T Q: 8 * d * pairs per head) against the bytes of q, k, v,
-// dO, LSE, Delta, dK and dV; at the training shapes the two least times are
-// of one order, a few tens of microseconds, and this first kernel is bound
-// by its un-pipelined tile loads and the masked tiles it does not skip.
+// P^T dO and dS^T Q: 8 * d * pairs a head) against the bytes of q, k, v,
+// dO, LSE, Delta, dK and dV. At a student block of the training step
+// ([81 x 16, 197, 64] bf16 with the packed ids) the bytes bound it (0.059
+// ms, against ~0.02 ms of tensor-core work); what held the first port of
+// this kernel far above that was the latency of its synchronous tile loads
+// and short loops (a key tile meets 3-4 q tiles at N = 197) and the masked
+// q tiles it walked.
 //
 // What the design does:
-// - bf16: `mma.sync.m16n8k16` (fp32 accumulate), one CTA of 4 warps per
-//   (64-key tile, head, batch row), each warp owning 16 keys. K and V stay
-//   in registers as A fragments; q tiles of 64 rows of Q and dO, with their
-//   LSE, Delta and segment ids, are staged through padded shared memory.
-//   S^T = K Q^T and dP^T = V dO^T come out in the accumulator layout, which
-//   is the A-fragment layout of the next products, so P^T and dS^T are
+// - Skipping. With segment ids a CTA walks only the q tiles on its key
+//   tile's list in K1's tile schedule (64-row q tiles, 64-key tiles), which
+//   the forward built and the caller keeps. The schedule lists, per q tile
+//   i, the key tiles j that meet it, and meet(i, j) reads only the two
+//   tiles' summaries (min and max of the ids >= 0 over positions < N, and
+//   whether a negative id occurs), computed alike for q and key tiles of
+//   one seg row. With both tiles 64 wide the summaries of q tile j and key
+//   tile j are the same, so meet is symmetric and row j of the schedule,
+//   the key tiles that meet q tile j, is exactly the list of q tiles that
+//   meet key tile j. The schedule is conservative, so every q row whose id
+//   equals the id of a key of the tile lies in a listed q tile, and a
+//   skipped q tile would add exactly 0 (all its P are masked). Without
+//   segment ids every q tile is walked.
+// - bf16, head_dim 64 (every ViT up to ViT-L): TMA + wgmma, with the
+//   building blocks of K1's body (csrc/hopper.cuh). A CTA of one consumer
+//   warpgroup and one producer warp takes (64-key tile, head, batch row)
+//   items on a persistent grid (as many CTAs as fit on the SMs: two an
+//   SM), so that the producer loads the next item's K and V (two slots)
+//   and first q tiles while the consumers finish this one (one CTA an
+//   item was slower). The producer loads an item's K and V tiles once,
+//   then streams its listed Q and dO tiles (4-D tensor maps over [B, N, h,
+//   d] through the tensors' strides, 128-byte swizzle; rows past N arrive
+//   as zeros) through a three-stage mbarrier ring; its
+//   32 lanes copy each q tile's LSE (in log2 units, +inf past N so that P
+//   is 0 there), Delta and ids beside them. Per q tile the consumer issues
+//   S^T = K Q^T and dP^T = V dO^T (wgmma from shared memory, contracting
+//   over d: both K-major), forms P^T = exp2(S^T scale log2(e) - LSE) with
+//   the masks (`ex2.approx`) and dS^T = P^T (dP^T - Delta) in fp32
+//   registers, and issues dV += P^T dO and dK += dS^T Q with A from
+//   registers (the accumulator layout of S^T is the A-fragment layout; P^T
+//   and dS^T are rounded to bf16) and B the same Q and dO tiles read
+//   MN-major (the transposed-B mode, contracting over the q rows). The
+//   CTA does not overlap its own products with forming P^T: that needs
+//   S^T and dP^T of the next tile live beside P^T, dS^T, dK and dV (160
+//   accumulator registers, over the 168 that two CTAs an SM allow), and
+//   the other CTA on the SM keeps the tensor cores busy instead. dK and dV
+//   stay in fp32 registers for the whole walk and are written once: no
+//   atomics, so two runs give the same bits.
+// - bf16, head_dim 128 (no caller on the main path): `mma.sync.m16n8k16`
+//   (fp32 accumulate), one CTA of 4 warps per (64-key tile, head, batch
+//   row), each warp owning 16 keys. K and V stay in registers as A
+//   fragments; the listed q tiles of 64 rows of Q and dO, with their LSE,
+//   Delta and segment ids, are staged through padded shared memory. S^T =
+//   K Q^T and dP^T = V dO^T come out in the accumulator layout, which is
+//   the A-fragment layout of the next products, so P^T and dS^T are
 //   rounded to bf16 in registers and fed straight into dV += P^T dO and
-//   dK += dS^T Q. The dK and dV sums stay in fp32 registers for the whole
-//   q loop: no atomics, so two runs give the same bits.
+//   dK += dS^T Q; the sums stay in fp32 registers.
 // - fp32: one thread per key, k, v and both sums in registers, q/dO tiles of
-//   32 rows in shared memory, scalar FMAs, fp32 throughout.
+//   32 rows in shared memory, scalar FMAs, fp32 throughout; every q tile.
 // - q, k, v and dO are read through their strides in the [B, N, h, d]
 //   layout; dK and dV are written as contiguous [B, N, h, d].
-// Later work (not here): wgmma + TMA, and skipping the q tiles whose
-// segment ids cannot meet the key tile's.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "hopper.cuh"
 
 namespace {
 
@@ -51,6 +92,8 @@ struct Args {
   const void* v;
   const void* dout;
   const int* seg;      // [B, N] int32, or nullptr
+  const int* tiles;    // [B, nT, nT] K1's schedule (64 x 64), or nullptr
+  const int* counts;   // [B, nT] its list lengths, or nullptr
   const float* lse;    // [B, H, N] fp32
   const float* delta;  // [B, H, N] fp32
   void* dk;            // [B, N, H, D] contiguous, input dtype
@@ -63,7 +106,22 @@ struct Args {
   float scale;
 };
 
-// ---------------------------------------------------------------- bf16 path
+// The q tiles a CTA of key tile kt visits: row kt of K1's schedule (see the
+// note above: the 64 x 64 schedule is symmetric), or every 64-row q tile.
+struct TileList {
+  const int* list;
+  int count;
+  __device__ __forceinline__ int operator[](int i) const { return list ? list[i] : i; }
+};
+
+__device__ __forceinline__ TileList q_tile_list(const Args& a, int kt, int b) {
+  const int nt = (a.N + 63) / 64;  // key tiles, and as many q tiles
+  if (!a.tiles) return TileList{nullptr, nt};
+  const long long row = static_cast<long long>(b) * nt + kt;
+  return TileList{a.tiles + row * nt, a.counts[row]};
+}
+
+// ------------------------------- bf16 helpers, and the head_dim-128 body
 
 __device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4],
                                          uint32_t b0, uint32_t b1) {
@@ -192,7 +250,9 @@ __global__ void __launch_bounds__(128) flash_bwd_dkv_bf16(Args a) {
     dv[i][0] = dv[i][1] = dv[i][2] = dv[i][3] = 0.f;
   }
 
-  for (int q0 = 0; q0 < N; q0 += kBQ) {
+  const TileList tl = q_tile_list(a, blockIdx.x, b);
+  for (int it = 0; it < tl.count; ++it) {
+    const int q0 = tl[it] * kBQ;
     load_tile<D, LD>(sQ, qb, a.q_sn, q0, N);
     load_tile<D, LD>(sD, db, a.d_sn, q0, N);
     if (threadIdx.x < kBQ) {
@@ -254,6 +314,270 @@ __global__ void __launch_bounds__(128) flash_bwd_dkv_bf16(Args a) {
     }
   }
 }
+
+// ------------------------------------ bf16, head_dim 64: TMA + wgmma body
+
+namespace wg {
+
+using namespace hopper;
+
+constexpr int kStages = 3;
+constexpr int kThreads = 160;  // consumer warpgroup + producer warp
+
+constexpr int kKv = 2;         // K/V slots: this item's and the next one's
+// Shared memory: the K/V slots, the Q ring and the dO ring (each tile
+// 1024-byte aligned: the 128-byte swizzle repeats every 8 rows of 128
+// bytes), then per stage the q rows' LSE (log2 units), Delta and ids, then
+// the mbarriers
+constexpr int kRowOffset = kTileBytes * (2 * kKv + 2 * kStages);
+constexpr int kBarOffset = kRowOffset + 3 * kStages * kRows * 4;
+constexpr int kSmemBytes = 1024 + kBarOffset + 8 * (2 * kKv + 2 * kStages);
+
+// Accumulators of 64 x 64 (keys x q rows) as the bf16 A fragments of a
+// product contracting over the q rows: columns [16kk, 16kk + 16) of the
+// accumulator are exactly the A fragment of k-step kk.
+__device__ __forceinline__ void pack_frags(uint32_t (&a)[16], const float (&x)[32]) {
+#pragma unroll
+  for (int i = 0; i < 16; ++i) a[i] = pack_bf16(x[2 * i], x[2 * i + 1]);
+}
+
+// P^T and dS^T of one q tile in place of S^T (sc) and dP^T (dp), for this
+// thread's keys (ids sk_lo, sk_hi) and q columns 8c + 2t + e: lse2 holds
+// the q rows' LSE in log2 units (+inf past N), delta their Delta, seg their
+// ids.
+__device__ __forceinline__ void form_p_ds(float (&sc)[32], float (&dp)[32], const float* lse2,
+                                          const float* delta, const int* seg, int sk_lo,
+                                          int sk_hi, int t, float sl2) {
+#pragma unroll
+  for (int c = 0; c < 8; ++c) {
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      const int col = 8 * c + 2 * t + e;
+      const float l = lse2[col], d = delta[col];
+      const int id = seg[col];
+      const float p_lo = id == sk_lo ? fast_exp2(sc[4 * c + e] * sl2 - l) : 0.f;
+      const float p_hi = id == sk_hi ? fast_exp2(sc[4 * c + 2 + e] * sl2 - l) : 0.f;
+      sc[4 * c + e] = p_lo;
+      sc[4 * c + 2 + e] = p_hi;
+      dp[4 * c + e] = p_lo * (dp[4 * c + e] - d);
+      dp[4 * c + 2 + e] = p_hi * (dp[4 * c + 2 + e] - d);
+    }
+  }
+}
+
+// One work item: a 64-key tile kt of head h of batch row b.
+struct Item {
+  int kt, h, b;
+};
+
+// A CTA's items in order: blockIdx.x, blockIdx.x + gridDim.x, ... of all
+// nT * H * B (key tile fastest).
+struct Items {
+  int next, total, nt, H;
+  __device__ __forceinline__ Items(const Args& a) {
+    nt = (a.N + kRows - 1) / kRows;
+    H = a.H;
+    next = blockIdx.x;
+    total = nt * a.H * a.B;
+  }
+  __device__ __forceinline__ bool get(Item& it) {
+    if (next >= total) return false;
+    it = Item{next % nt, (next / nt) % H, next / (nt * H)};
+    next += gridDim.x;
+    return true;
+  }
+};
+
+// A persistent grid (as many CTAs as fit on the SMs) walks the items; the
+// producer loads the next item's K and V (the other slot) and q tiles
+// while the consumers finish this one.
+__global__ void __launch_bounds__(kThreads, 2)
+    flash_bwd_dkv_wgmma(const __grid_constant__ CUtensorMap map_q,
+                        const __grid_constant__ CUtensorMap map_k,
+                        const __grid_constant__ CUtensorMap map_v,
+                        const __grid_constant__ CUtensorMap map_do, const Args a) {
+  extern __shared__ uint8_t smem_raw[];
+  // 1024-byte aligned base in the shared window
+  const uint32_t raw = smem_u32(smem_raw);
+  uint8_t* smem = smem_raw + (((raw + 1023u) & ~1023u) - raw);
+  const uint32_t s_k = smem_u32(smem);                // slot j at + j * kTileBytes
+  const uint32_t s_v = s_k + kKv * kTileBytes;
+  const uint32_t s_q = s_v + kKv * kTileBytes;        // stage s at + s * kTileBytes
+  const uint32_t s_do = s_q + kStages * kTileBytes;
+  float* row_lse = reinterpret_cast<float*>(smem + kRowOffset);  // [kStages][64] each
+  float* row_delta = row_lse + kStages * kRows;
+  int* row_seg = reinterpret_cast<int*>(row_delta + kStages * kRows);
+  // per K/V slot: full, empty; then per ring stage: full, empty
+  const uint32_t bar = s_k + kBarOffset;
+  auto bar_kvf = [&](int j) { return bar + 8 * (2 * j); };
+  auto bar_kve = [&](int j) { return bar + 8 * (2 * j + 1); };
+  auto bar_f = [&](int s) { return bar + 8 * (2 * kKv + 2 * s); };
+  auto bar_e = [&](int s) { return bar + 8 * (2 * kKv + 2 * s + 1); };
+  const int N = a.N;
+
+  if (threadIdx.x == 0) {
+    for (int j = 0; j < kKv; ++j) {
+      mbar_init(bar_kvf(j), 1);
+      mbar_init(bar_kve(j), 128);
+    }
+    for (int s = 0; s < kStages; ++s) {
+      mbar_init(bar_f(s), 1 + 32);  // the copy's expect_tx, then the 32 row copiers
+      mbar_init(bar_e(s), 128);     // every consumer thread releases the stage
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  Items items(a);
+  Item item;
+  if (threadIdx.x >= 128) {
+    // ---- producer warp: lane 0 issues the copies, all 32 lanes copy the
+    // q rows' LSE, Delta and ids. gi counts q tiles over all items (the
+    // ring's position), j the items (the K/V slots').
+    const int lane = threadIdx.x - 128;
+    int gi = 0;
+    for (int j = 0; items.get(item); ++j) {
+      const int slot = j % kKv;
+      const int k0 = item.kt * kRows;
+      // the slot's previous item (j - kKv) has been released
+      if (j >= kKv) mbar_wait(bar_kve(slot), ((j / kKv) & 1) ^ 1);
+      if (lane == 0) {
+        mbar_expect_tx(bar_kvf(slot), 2 * kTileBytes);
+        tma_load(s_k + slot * kTileBytes, &map_k, bar_kvf(slot), item.h, k0, item.b);
+        tma_load(s_v + slot * kTileBytes, &map_v, bar_kvf(slot), item.h, k0, item.b);
+      }
+      const TileList tl = q_tile_list(a, item.kt, item.b);
+      const int* segb = a.seg ? a.seg + static_cast<long long>(item.b) * N : nullptr;
+      const long long bh = static_cast<long long>(item.b) * a.H + item.h;
+      for (int it = 0; it < tl.count; ++it, ++gi) {
+        const int s = gi % kStages;
+        // the stage's previous q tile (gi - kStages) has been released
+        if (gi >= kStages) mbar_wait(bar_e(s), ((gi / kStages) & 1) ^ 1);
+        const int q0 = tl[it] * kRows;
+        if (lane == 0) {
+          mbar_expect_tx(bar_f(s), 2 * kTileBytes);
+          tma_load(s_q + s * kTileBytes, &map_q, bar_f(s), item.h, q0, item.b);
+          tma_load(s_do + s * kTileBytes, &map_do, bar_f(s), item.h, q0, item.b);
+        }
+        for (int r = lane; r < kRows; r += 32) {
+          const int n = q0 + r;
+          const bool in = n < N;
+          row_lse[s * kRows + r] = in ? a.lse[bh * N + n] * kLog2e : __int_as_float(0x7f800000);
+          row_delta[s * kRows + r] = in ? a.delta[bh * N + n] : 0.f;
+          row_seg[s * kRows + r] = in && segb ? segb[n] : 0;
+        }
+        mbar_arrive(bar_f(s));
+      }
+    }
+    return;
+  }
+
+  // ---- consumer warpgroup: warp w owns keys [16w, 16w + 16) of the tile;
+  // lane (g, t) holds keys g and g + 8 of them and, in each 8-column chunk
+  // c of a q tile, q rows 8c + 2t and + 1 (csrc/hopper.cuh). Per q tile:
+  // S^T and dP^T, then P^T and dS^T in registers, then dV and dK; the
+  // other CTA on the SM fills the tensor cores while this one forms P^T.
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const float sl2 = a.scale * kLog2e;
+  const int HD = a.H * kHd;
+  int gi = 0;
+  for (int j = 0; items.get(item); ++j) {
+    const int slot = j % kKv;
+    const uint32_t k_tile = s_k + slot * kTileBytes, v_tile = s_v + slot * kTileBytes;
+    const int n_lo = item.kt * kRows + warp * 16 + g, n_hi = n_lo + 8;
+    const TileList tl = q_tile_list(a, item.kt, item.b);
+    // without ids every key and q row carries 0; keys past N are never
+    // written, so their ids do not matter
+    int sk_lo = 0, sk_hi = 0;
+    if (a.seg) {
+      const int* segb = a.seg + static_cast<long long>(item.b) * N;
+      if (n_lo < N) sk_lo = __ldg(segb + n_lo);
+      if (n_hi < N) sk_hi = __ldg(segb + n_hi);
+    }
+    float dk[32], dv[32], sc[32], dp[32];
+    uint32_t pa[16], dsa[16];
+#pragma unroll
+    for (int i = 0; i < 32; ++i) dk[i] = dv[i] = 0.f;
+
+    mbar_wait(bar_kvf(slot), (j / kKv) & 1);
+    for (int it = 0; it < tl.count; ++it, ++gi) {
+      const int s = gi % kStages;
+      mbar_wait(bar_f(s), (gi / kStages) & 1);
+      wgmma_fence();
+      issue_qk(sc, k_tile, s_q + s * kTileBytes);
+      issue_qk(dp, v_tile, s_do + s * kTileBytes);
+      wgmma_wait<0>();
+      fence_regs(sc);
+      fence_regs(dp);
+      form_p_ds(sc, dp, row_lse + s * kRows, row_delta + s * kRows, row_seg + s * kRows, sk_lo,
+                sk_hi, t, sl2);
+      pack_frags(pa, sc);
+      pack_frags(dsa, dp);
+      wgmma_fence();
+      issue_pv(dv, pa, s_do + s * kTileBytes);
+      issue_pv(dk, dsa, s_q + s * kTileBytes);
+      wgmma_wait<0>();
+      fence_regs(dv);
+      fence_regs(dk);
+      fence_regs(pa);
+      fence_regs(dsa);
+      mbar_arrive(bar_e(s));
+    }
+    // every product that read this slot's K and V has completed
+    mbar_arrive(bar_kve(slot));
+
+    const long long base = static_cast<long long>(item.b) * N * HD + item.h * kHd;
+    uint16_t* dkb = static_cast<uint16_t*>(a.dk) + base;
+    uint16_t* dvb = static_cast<uint16_t*>(a.dv) + base;
+#pragma unroll
+    for (int c = 0; c < 8; ++c) {
+      const int col = 8 * c + 2 * t;
+      if (n_lo < N) {
+        const long long o = static_cast<long long>(n_lo) * HD + col;
+        *reinterpret_cast<uint32_t*>(dkb + o) =
+            pack_bf16(dk[4 * c] * a.scale, dk[4 * c + 1] * a.scale);
+        *reinterpret_cast<uint32_t*>(dvb + o) = pack_bf16(dv[4 * c], dv[4 * c + 1]);
+      }
+      if (n_hi < N) {
+        const long long o = static_cast<long long>(n_hi) * HD + col;
+        *reinterpret_cast<uint32_t*>(dkb + o) =
+            pack_bf16(dk[4 * c + 2] * a.scale, dk[4 * c + 3] * a.scale);
+        *reinterpret_cast<uint32_t*>(dvb + o) = pack_bf16(dv[4 * c + 2], dv[4 * c + 3]);
+      }
+    }
+  }
+}
+
+cudaError_t launch(const Args& a, cudaStream_t st) {
+  CUtensorMap mq, mk, mv, md;
+  if (!make_map(&mq, a.q, a.B, a.N, a.H, a.q_sb, a.q_sn, a.q_sh) ||
+      !make_map(&mk, a.k, a.B, a.N, a.H, a.k_sb, a.k_sn, a.k_sh) ||
+      !make_map(&mv, a.v, a.B, a.N, a.H, a.v_sb, a.v_sn, a.v_sh) ||
+      !make_map(&md, a.dout, a.B, a.N, a.H, a.d_sb, a.d_sn, a.d_sh))
+    return cudaErrorInvalidValue;
+  static int ctas_per_sm = 0;  // also "configured"
+  if (!ctas_per_sm) {
+    cudaError_t err = cudaFuncSetAttribute(flash_bwd_dkv_wgmma,
+                                           cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                           kSmemBytes);
+    if (err == cudaSuccess)
+      err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&ctas_per_sm, flash_bwd_dkv_wgmma,
+                                                          kThreads, kSmemBytes);
+    if (err != cudaSuccess) return err;
+    if (ctas_per_sm < 1) return cudaErrorInvalidConfiguration;
+  }
+  int device = 0, sms = 0;
+  cudaError_t err = cudaGetDevice(&device);
+  if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
+  if (err != cudaSuccess) return err;
+  const long long items = static_cast<long long>((a.N + kRows - 1) / kRows) * a.H * a.B;
+  const int grid = static_cast<int>(items < sms * ctas_per_sm ? items : sms * ctas_per_sm);
+  flash_bwd_dkv_wgmma<<<grid, kThreads, kSmemBytes, st>>>(mq, mk, mv, md, a);
+  return cudaGetLastError();
+}
+
+}  // namespace wg
 
 // ---------------------------------------------------------------- fp32 path
 
@@ -336,21 +660,29 @@ extern "C" {
 
 // Launches the dK/dV backward on `stream` and returns cudaGetLastError().
 // dtype: 0 = fp32, 1 = bf16. D must be 64 or 128. Writes dk, dv [B, N, H, D].
+// With segment ids, the bf16 kernels take `tiles` [B, nT, nT] and `counts`
+// [B, nT] int32, K1's tile schedule for 64-row q tiles and 64-key tiles
+// (nT = ceil(N / 64)), and walk row kt of it for key tile kt; null tiles
+// and counts walk every q tile (always so for fp32).
 int dinov3_flash_bwd_dkv(const void* q, const void* k, const void* v, const void* dout,
-                         const int* seg, const float* lse, const float* delta, void* dk,
+                         const int* seg, const int* tiles, const int* counts,
+                         const float* lse, const float* delta, void* dk,
                          void* dv, int B, int N, int H, int D, int dtype,
                          long long q_sb, long long q_sn, long long q_sh,
                          long long k_sb, long long k_sn, long long k_sh,
                          long long v_sb, long long v_sn, long long v_sh,
                          long long d_sb, long long d_sn, long long d_sh,
                          float scale, void* stream) {
-  Args a{q, k, v, dout, seg, lse, delta, dk, dv, B, N, H,
+  if ((tiles != nullptr) != (counts != nullptr) ||
+      (tiles != nullptr && (seg == nullptr || dtype != 1)))
+    return static_cast<int>(cudaErrorInvalidValue);
+  Args a{q, k, v, dout, seg, tiles, counts, lse, delta, dk, dv, B, N, H,
          q_sb, q_sn, q_sh, k_sb, k_sn, k_sh, v_sb, v_sn, v_sh,
          d_sb, d_sn, d_sh, scale};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const dim3 grid((N + 63) / 64, H, B);
   if (dtype == 1 && D == 64) {
-    flash_bwd_dkv_bf16<64><<<grid, 128, 0, st>>>(a);
+    return static_cast<int>(wg::launch(a, st));
   } else if (dtype == 1 && D == 128) {
     flash_bwd_dkv_bf16<128><<<grid, 128, 0, st>>>(a);
   } else if (dtype == 0 && D == 64) {

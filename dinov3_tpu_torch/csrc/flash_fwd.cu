@@ -51,11 +51,12 @@
 // Segment ids are read as [B, N] int32 per batch row, not as a per-head
 // broadcast copy; the ragged edge (N not a multiple of the tile) is masked
 // in the kernels; nothing is padded on the host.
-#include <cuda.h>  // CUtensorMap and its enums only; libcuda is not linked
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <limits.h>
 #include <stdint.h>
+
+#include "hopper.cuh"
 
 namespace {
 
@@ -188,6 +189,8 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
 
 namespace wg {
 
+using namespace hopper;
+
 constexpr int kBQ = 64, kBK = 64, kD = 64;
 constexpr int kStages = 3;
 constexpr int kTileBytes = 64 * kD * 2;  // one 64-row bf16 tile: 8 KB
@@ -196,142 +199,6 @@ constexpr int kThreads = 160;            // consumer warpgroup + producer warp
 // swizzle repeats every 8 rows of 128 bytes), then the mbarriers
 constexpr int kBarOffset = kTileBytes * (1 + 2 * kStages);
 constexpr int kSmemBytes = 1024 + kBarOffset + 8 * (1 + 3 * kStages);
-
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar), "r"(count) : "memory");
-}
-
-__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar),
-               "r"(bytes)
-               : "memory");
-}
-
-__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar) : "memory");
-}
-
-// Wait until the phase with this parity has completed.
-__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
-  uint32_t done = 0;
-  do {
-    asm volatile(
-        "{\n"
-        ".reg .pred p;\n"
-        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        "selp.u32 %0, 1, 0, p;\n"
-        "}\n"
-        : "=r"(done)
-        : "r"(bar), "r"(parity)
-        : "memory");
-  } while (!done);
-}
-
-// One 64-row box of a [B, N, H, D] map at (d = 0, h, n0, b) into shared memory.
-__device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map, uint32_t bar,
-                                         int h, int n0, int b) {
-  asm volatile(
-      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx::bytes "
-      "[%0], [%1, {%3, %4, %5, %6}], [%2];\n" ::"r"(dst),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(0), "r"(h), "r"(n0), "r"(b)
-      : "memory");
-}
-
-// Shared-memory matrix descriptor, 128-byte swizzle; offsets in bytes.
-__device__ __forceinline__ uint64_t smem_desc(uint32_t addr, uint32_t lbo, uint32_t sbo) {
-  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) |
-         (static_cast<uint64_t>(lbo >> 4) << 16) | (static_cast<uint64_t>(sbo >> 4) << 32) |
-         (1ull << 62);
-}
-
-__device__ __forceinline__ void wgmma_fence() {
-  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void wgmma_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-}
-
-// Keeps the compiler from moving uses of registers that an asynchronous
-// wgmma reads or writes across its wait.
-template <int N>
-__device__ __forceinline__ void fence_regs(float (&r)[N]) {
-#pragma unroll
-  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i])::"memory");
-}
-template <int N>
-__device__ __forceinline__ void fence_regs(uint32_t (&r)[N]) {
-#pragma unroll
-  for (int i = 0; i < N; ++i) asm volatile("" : "+r"(r[i])::"memory");
-}
-
-#define WG_ACC32                                                                       \
-  "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, "  \
-  "%18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}"
-#define WG_ACC32_OPS(d)                                                                 \
-  "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),   \
-      "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]),        \
-      "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]),     \
-      "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),     \
-      "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]),     \
-      "+f"(d[31])
-
-// d (+)= A B for a 64x16 A and a 16x64 B, both K-major in shared memory;
-// scale_d = 0 overwrites d.
-__device__ __forceinline__ void wgmma_ss(float (&d)[32], uint64_t da, uint64_t db,
-                                         int scale_d) {
-  asm volatile(
-      "{\n"
-      ".reg .pred p;\n"
-      "setp.ne.b32 p, %34, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 " WG_ACC32
-      ", %32, %33, p, 1, 1, 0, 0;\n"
-      "}\n"
-      : WG_ACC32_OPS(d)
-      : "l"(da), "l"(db), "r"(scale_d));
-}
-
-// d += A B with A (64x16) from registers and B (16x64) MN-major in shared
-// memory (the transposed-B mode).
-__device__ __forceinline__ void wgmma_rs(float (&d)[32], uint32_t a0, uint32_t a1, uint32_t a2,
-                                         uint32_t a3, uint64_t db) {
-  asm volatile(
-      "{\n"
-      ".reg .pred p;\n"
-      "setp.ne.b32 p, %37, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 " WG_ACC32
-      ", {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n"
-      "}\n"
-      : WG_ACC32_OPS(d)
-      : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "l"(db), "r"(1));
-}
-
-// S = Q K^T for one K tile: four k-steps of 16 along d, 32 bytes apart in
-// the swizzled 128-byte rows; one commit group.
-__device__ __forceinline__ void issue_qk(float (&sc)[32], uint32_t s_q, uint32_t s_k) {
-#pragma unroll
-  for (int kc = 0; kc < kD / 16; ++kc)
-    wgmma_ss(sc, smem_desc(s_q + 32 * kc, 16, 1024), smem_desc(s_k + 32 * kc, 16, 1024), kc);
-  wgmma_commit();
-}
-
-// O += P V for one V tile: V's k-step kk is its rows [16kk, 16kk + 16),
-// 2 KB apart, with 8-row groups 1 KB apart; one commit group.
-__device__ __forceinline__ void issue_pv(float (&o)[32], const uint32_t (&pa)[16], uint32_t s_v) {
-#pragma unroll
-  for (int kk = 0; kk < kBK / 16; ++kk)
-    wgmma_rs(o, pa[4 * kk], pa[4 * kk + 1], pa[4 * kk + 2], pa[4 * kk + 3],
-             smem_desc(s_v + 2048 * kk, 1024, 1024));
-  wgmma_commit();
-}
-
-template <int kPending>
-__device__ __forceinline__ void wgmma_wait() {
-  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(kPending) : "memory");
-}
 
 // The ids of this thread's 16 key columns of the tile at k0 (keys past N
 // get -3, which matches nothing).
@@ -345,14 +212,6 @@ __device__ __forceinline__ void load_key_ids(int (&sk)[16], const int* segb, int
       sk[2 * c + e] = n < N ? __ldg(segb + n) : -3;
     }
   }
-}
-
-// 2^x by the special-function unit alone (denormal results flush to 0,
-// which the softmax cannot tell from 0); exp2f adds a denormal path.
-__device__ __forceinline__ float fast_exp2(float x) {
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
-  return y;
 }
 
 // The online softmax over one S tile, in place: masks, scales into log2
@@ -566,52 +425,6 @@ __global__ void __launch_bounds__(kThreads)
     if (n_lo < N) lb[n_lo] = r.m_lo * kLn2 + logf(r.l_lo);
     if (n_hi < N) lb[n_hi] = r.m_hi * kLn2 + logf(r.l_hi);
   }
-}
-
-#undef WG_ACC32
-#undef WG_ACC32_OPS
-
-// cuTensorMapEncodeTiled, looked up at run time through the CUDA runtime,
-// so that the library needs no -lcuda.
-typedef CUresult (*EncodeTiledFn)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
-                                  const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
-                                  const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
-                                  CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
-
-EncodeTiledFn encode_fn() {
-  static EncodeTiledFn fn = nullptr;
-  if (!fn) {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult res;
-#if CUDART_VERSION >= 12050
-    const cudaError_t err =
-        cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &res);
-#else
-    const cudaError_t err =
-        cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &res);
-#endif
-    if (err == cudaSuccess && res == cudaDriverEntryPointSuccess) fn = reinterpret_cast<EncodeTiledFn>(p);
-  }
-  return fn;
-}
-
-// A 4-D map over one [B, N, H, 64] bf16 tensor (element strides sb, sn, sh;
-// last dim contiguous), boxes of 64 rows of one head, 128-byte swizzle,
-// rows past N read as zeros.
-bool make_map(CUtensorMap* map, const void* base, int B, int N, int H, long long sb,
-              long long sn, long long sh) {
-  EncodeTiledFn encode = encode_fn();
-  if (!encode) return false;
-  cuuint64_t dims[4] = {static_cast<cuuint64_t>(kD), static_cast<cuuint64_t>(H),
-                        static_cast<cuuint64_t>(N), static_cast<cuuint64_t>(B)};
-  cuuint64_t strides[3] = {static_cast<cuuint64_t>(sh) * 2, static_cast<cuuint64_t>(sn) * 2,
-                           static_cast<cuuint64_t>(sb) * 2};
-  cuuint32_t box[4] = {static_cast<cuuint32_t>(kD), 1, static_cast<cuuint32_t>(kBK), 1};
-  cuuint32_t elem[4] = {1, 1, 1, 1};
-  return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(base), dims, strides,
-                box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
-                CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
-                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
 cudaError_t launch(const Args& a, cudaStream_t st) {

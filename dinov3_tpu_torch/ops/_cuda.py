@@ -2,8 +2,10 @@
 
 Each kernel is a ``.cu`` file with a plain C interface. ``nvcc`` compiles
 it for Hopper (``sm_90a``) into a shared library under ``build/kernels/``
-at the repository root, named by the hash of its source and flags so an
-edited source never loads a stale build, and ``ctypes`` loads it. Nothing is
+at the repository root, named by the hash of its source, of every header
+it includes with quotes (``csrc/hopper.cuh``), and of the flags, so an
+edited source or header never loads a stale build, and ``ctypes`` loads
+it. Nothing is
 built when this module is imported: a kernel is built at its first
 launch, or all of them at once, in parallel, by ``build_kernels``.
 
@@ -18,6 +20,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 from pathlib import Path
@@ -26,6 +29,21 @@ _CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+_INCLUDE = re.compile(rb'^[ \t]*#[ \t]*include[ \t]*"([^"]+)"', re.MULTILINE)
+
+
+def source_files(source: Path) -> list[Path]:
+    """The source and every header it includes with quotes, transitively,
+    each once, in the order first met (quoted includes resolve beside the
+    file that names them)."""
+    found, todo = [], [source]
+    while todo:
+        path = todo.pop(0)
+        if path in found:
+            continue
+        found.append(path)
+        todo += [path.parent / m.decode() for m in _INCLUDE.findall(path.read_bytes())]
+    return found
 
 
 def _nvcc() -> str:
@@ -55,8 +73,9 @@ class CudaKernel:
     def library(self) -> Path:
         if self.built_by is not None:
             return self.built_by.library
-        digest = hashlib.sha1(self.source.read_bytes()
-                              + " ".join(NVCC_FLAGS).encode()).hexdigest()[:12]
+        digest = hashlib.sha1(
+            b"".join(p.read_bytes() for p in source_files(self.source))
+            + " ".join(NVCC_FLAGS).encode()).hexdigest()[:12]
         return BUILD_DIR / f"lib{self.name}-{digest}.so"
 
     def _tmp_library(self) -> Path:

@@ -22,7 +22,10 @@ q tile) the ascending list of the key tiles it can meet, from each tile's
 min and max id >= 0 and whether it holds a negative id, and walks only
 those (a skipped tile's logits are all masked, so skipping changes no
 result). ``flash_tile_schedule`` launches that schedule kernel alone;
-``flash_tile_schedule_plain`` is its plain twin.
+``flash_tile_schedule_plain`` is its plain twin. The backward keeps the
+forward's schedule: with 64-row q tiles and 64-key tiles (bf16) it is
+symmetric, so row j of it is also the list of q tiles that can meet key
+tile j, and the bf16 dK/dV kernel K3 walks only those.
 """
 
 from __future__ import annotations
@@ -47,7 +50,7 @@ FLASH_BWD_DQ = CudaKernel(
     [_P] * 9 + [_I] * 5 + [_L] * 15 + [ctypes.c_float, _P])
 FLASH_BWD_DKV = CudaKernel(
     "flash_bwd_dkv", "flash_bwd_dkv.cu",
-    [_P] * 9 + [_I] * 5 + [_L] * 12 + [ctypes.c_float, _P])
+    [_P] * 11 + [_I] * 5 + [_L] * 12 + [ctypes.c_float, _P])
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 # K1's (q tile, key tile) sizes: its schedule is built for these
 FWD_TILES = {torch.bfloat16: (64, 64), torch.float32: (64, 32)}
@@ -208,15 +211,16 @@ def flash_tile_schedule(seg, block_q=64, block_k=64):
 
 
 def flash_fwd(q, k, v, seg=None):
-    """K1 on CUDA tensors: (O [B, N, h, d] contiguous, LSE [B, h, N]). With
-    seg, the one launch builds the tile schedule into buffers allocated
-    here, then walks it."""
+    """K1 on CUDA tensors: (O [B, N, h, d] contiguous, LSE [B, h, N],
+    schedule). With seg, the one launch builds the tile schedule into
+    buffers allocated here, then walks it; schedule is (tiles, counts), for
+    the backward, or None without seg."""
     _check(q, k, v, seg)
     B, N, H, D = q.shape
     out = torch.empty((B, N, H, D), dtype=q.dtype, device=q.device)
     lse = torch.empty((B, H, N), dtype=torch.float32, device=q.device)
     if out.numel() == 0:  # an empty grid is not a launch
-        return out, lse
+        return out, lse, None
     block_q, block_k = FWD_TILES[q.dtype]
     tiles = counts = None
     if seg is not None:
@@ -227,7 +231,7 @@ def flash_fwd(q, k, v, seg=None):
         out.data_ptr(), lse.data_ptr(), B, N, H, D, _DTYPE_CODE[q.dtype],
         *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
         float(D) ** -0.5, stream_ptr(q.device))
-    return out, lse
+    return out, lse, None if seg is None else (tiles, counts)
 
 
 def _check_bwd(q, lse, **like_q):
@@ -263,21 +267,51 @@ def flash_bwd_dq(q, k, v, o, lse, do, seg=None):
     return dq, delta
 
 
-def flash_bwd_dkv(q, k, v, lse, delta, do, seg=None):
-    """K3 on CUDA tensors: (dK, dV), each [B, N, h, d] contiguous."""
+def _check_schedule(schedule, seg):
+    tiles, counts = schedule
+    B, N = seg.shape
+    nt = -(-N // 64)
+    for name, t, shape in (("tiles", tiles, (B, nt, nt)), ("counts", counts, (B, nt))):
+        if t.shape != shape or t.dtype != torch.int32 or not t.is_contiguous() \
+                or t.device != seg.device:
+            raise ValueError(
+                f"the schedule's {name} must be a contiguous int32 {shape} "
+                f"tensor on {seg.device} (K1's 64 x 64 schedule of seg); got "
+                f"{t.dtype} {tuple(t.shape)} on {t.device}")
+
+
+def flash_bwd_dkv(q, k, v, lse, delta, do, seg=None, schedule=None):
+    """K3 on CUDA tensors: (dK, dV), each [B, N, h, d] contiguous.
+
+    With seg and bf16 inputs the kernel walks, for each key tile, only the
+    q tiles that can meet it: row j of ``schedule``, K1's (tiles, counts)
+    of this seg for 64 x 64 tiles as ``flash_fwd`` returns it (built here,
+    one more launch of the schedule kernel, when not given). fp32 walks
+    every q tile and takes no schedule."""
     _check(q, k, v, seg)
     _check_bwd(q, lse, do=do)
     if delta.shape != lse.shape or delta.dtype != torch.float32 \
             or not delta.is_contiguous() or delta.device != q.device:
         raise ValueError("delta must be a contiguous fp32 tensor like lse")
+    walks_schedule = seg is not None and q.dtype == torch.bfloat16
+    if schedule is not None and not walks_schedule:
+        raise ValueError("K3 reads a schedule only for bf16 inputs with "
+                         "segment ids")
     B, N, H, D = q.shape
     dk = torch.empty((B, N, H, D), dtype=k.dtype, device=q.device)
     dv = torch.empty((B, N, H, D), dtype=v.dtype, device=q.device)
     if dk.numel() == 0:
         return dk, dv
+    tiles = counts = None
+    if walks_schedule:
+        if schedule is None:
+            schedule = flash_tile_schedule(seg, *FWD_TILES[torch.bfloat16])
+        _check_schedule(schedule, seg)
+        tiles, counts = schedule
     FLASH_BWD_DKV.launch(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
-        _ptr(seg), lse.data_ptr(), delta.data_ptr(), dk.data_ptr(),
+        _ptr(seg), _ptr(tiles), _ptr(counts), lse.data_ptr(),
+        delta.data_ptr(), dk.data_ptr(),
         dv.data_ptr(), B, N, H, D, _DTYPE_CODE[q.dtype],
         *q.stride()[:3], *k.stride()[:3], *v.stride()[:3], *do.stride()[:3],
         float(D) ** -0.5, stream_ptr(q.device))
@@ -287,17 +321,22 @@ def flash_bwd_dkv(q, k, v, lse, delta, do, seg=None):
 class _FlashAttention(torch.autograd.Function):
     @staticmethod
     def forward(ctx, q, k, v, seg):
+        schedule = None
         if q.device.type == "cpu":
             out, lse = attention_plain(q, k, v, seg)
         else:
-            out, lse = flash_fwd(q, k, v, seg)
-        ctx.save_for_backward(q, k, v, out, lse, seg)
+            out, lse, schedule = flash_fwd(q, k, v, seg)
+        # K1's schedule, kept for K3 where it reads it (bf16 with seg)
+        tiles = counts = None
+        if q.dtype == torch.bfloat16 and schedule is not None:
+            tiles, counts = schedule
+        ctx.save_for_backward(q, k, v, out, lse, seg, tiles, counts)
         ctx.mark_non_differentiable(lse)
         return out, lse
 
     @staticmethod
     def backward(ctx, do, _dlse):
-        q, k, v, out, lse, seg = ctx.saved_tensors
+        q, k, v, out, lse, seg, tiles, counts = ctx.saved_tensors
         if q.device.type == "cpu":
             dq, dk, dv = attention_bwd_plain(q, k, v, out, lse, do, seg)
         elif q.numel() == 0:  # an empty grid is not a launch
@@ -305,7 +344,9 @@ class _FlashAttention(torch.autograd.Function):
         else:
             do = do.contiguous()
             dq, delta = flash_bwd_dq(q, k, v, out, lse, do, seg)
-            dk, dv = flash_bwd_dkv(q, k, v, lse, delta, do, seg)
+            dk, dv = flash_bwd_dkv(
+                q, k, v, lse, delta, do, seg,
+                None if tiles is None else (tiles, counts))
         return dq, dk, dv, None
 
 

@@ -30,16 +30,18 @@ LAYERNORM_FWD = CudaKernel(
     [_P, _P, _P, _P, _I, _I, ctypes.c_float, _I, _I, _I, _P])
 LAYERNORM_BWD = CudaKernel(
     "layernorm_bwd", "layernorm_bwd.cu",
-    [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, ctypes.c_float, _I, _I, _P])
+    [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, ctypes.c_float, _I, _I, _I, _P])
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 MAX_WIDTH = 4096
 # K4's vector path (one warp a row, 16-byte loads, the row in registers)
 # takes widths up to this; wider rows take the general path
 VEC_MAX_WIDTH = 2048
-# the backward's first pass runs at most this many CTAs (8 resident CTAs
-# of 256 threads on each of the H100's 132 SMs), each over a fixed run of
-# rows; the second pass sums their partials in CTA order
+# K5's row pass runs at most this many CTAs of 256 threads, each over a
+# fixed run of rows: on the general path 8 resident CTAs on each of the
+# H100's 132 SMs, on the vector path 2 (its register cap; more CTAs were
+# slower); the column pass sums their partial rows in CTA order
 BWD_MAX_CTAS = 8 * 132
+BWD_VEC_CTAS = 2 * 132
 
 
 def _stats_dtype(x: torch.Tensor) -> torch.dtype:
@@ -102,8 +104,9 @@ def _check(x, scale, bias=None):
 
 
 def layernorm_vec_path(D: int, x_dtype: torch.dtype, addresses) -> int:
-    """K4's path for a row width D of x_dtype and the data addresses of x,
-    y, scale and bias: the 16-byte vectors each lane of a warp holds for
+    """K4's and K5's path for a row width D of x_dtype and the data
+    addresses the kernel reads or writes as vectors (K4: x, y, scale and
+    bias; K5: x, g and dx): the 16-byte vectors each lane of a warp holds for
     one row on the vector path (1, 2, 4, 8, or 16 for fp32 x), or 0 for
     the general path. The vector path needs D a multiple of one vector (8
     bf16 or 4 fp32 values), D <= VEC_MAX_WIDTH and every address 16-byte
@@ -132,7 +135,8 @@ def layernorm_fwd(x, scale, bias, eps: float = 1e-6):
 
 def layernorm_bwd(x, scale, g, eps: float = 1e-6):
     """K5 on CUDA tensors: (dx, dscale, dbias) for a contiguous x and g of
-    one shape. Both of its passes are one launch."""
+    one shape. Both of its passes are one launch. Its row pass takes K4's
+    vector path where x, g and dx allow it (``layernorm_vec_path``)."""
     _check(x, scale)
     if g.shape != x.shape or g.dtype != x.dtype or g.device != x.device \
             or not g.is_contiguous():
@@ -144,7 +148,8 @@ def layernorm_bwd(x, scale, g, eps: float = 1e-6):
     dx = torch.empty_like(x)
     if rows == 0:  # no rows: zero parameter gradients, nothing launched
         return dx, torch.zeros_like(scale), torch.zeros_like(scale)
-    per_cta = -(-rows // BWD_MAX_CTAS)
+    vec = layernorm_vec_path(D, x.dtype, (x.data_ptr(), g.data_ptr(), dx.data_ptr()))
+    per_cta = -(-rows // (BWD_VEC_CTAS if vec else BWD_MAX_CTAS))
     n_cta = -(-rows // per_cta)
     part = torch.empty((2, n_cta, D), dtype=torch.float32, device=x.device)
     dscale = torch.empty_like(scale)
@@ -153,7 +158,7 @@ def layernorm_bwd(x, scale, g, eps: float = 1e-6):
         x.data_ptr(), scale.data_ptr(), g.data_ptr(), dx.data_ptr(),
         dscale.data_ptr(), dbias.data_ptr(), part.data_ptr(), rows, D, n_cta,
         per_cta, float(eps), _DTYPE_CODE[x.dtype], _DTYPE_CODE[scale.dtype],
-        stream_ptr(x.device))
+        vec, stream_ptr(x.device))
     return dx, dscale, dbias
 
 

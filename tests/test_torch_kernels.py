@@ -33,12 +33,14 @@ Tolerances (stated per case):
 """
 
 import importlib.util
+import shutil
 from pathlib import Path
 
 import numpy as np
 import pytest
 import torch
 
+from dinov3_tpu_torch.ops._cuda import CudaKernel, source_files
 from dinov3_tpu_torch.ops.flash_attention import (
     FLASH_BWD_DKV,
     FLASH_BWD_DQ,
@@ -48,6 +50,9 @@ from dinov3_tpu_torch.ops.flash_attention import (
     attention_bwd_plain,
     attention_plain,
     flash_attention,
+    flash_bwd_dkv,
+    flash_bwd_dq,
+    flash_fwd,
     flash_tile_schedule,
     flash_tile_schedule_plain,
 )
@@ -222,6 +227,81 @@ def test_tile_schedule_skips_disjoint_tiles():
     assert tiles.tolist() == [[[0, 1, 2], [0, 1, 2], [0, 1, 2]]]
 
 
+def dkv_tile_lists(tiles):
+    """K3's q-tile lists as it reads them from K1's 64 x 64 schedule:
+    [B, key tile j, q tile i] bool, True where i is in row j of tiles."""
+    B, nq, nk = tiles.shape
+    assert nq == nk
+    listed = torch.zeros(B, nk, nq + 1, dtype=torch.bool)
+    listed.scatter_(2, torch.where(tiles < 0, nq, tiles).long(), True)
+    return listed[..., :nq]
+
+
+@pytest.mark.parametrize("kind", ["runs", "shuffled", "wide", "allpad"])
+@pytest.mark.parametrize("N", [1, 63, 64, 197, 300])
+def test_dkv_q_tile_lists_are_the_transposed_schedule(kind, N):
+    """K3 reads its q-tile lists as the rows of K1's 64 x 64 schedule. That
+    is exact because the schedule is symmetric for equal tile sizes, and
+    the lists cover every (query, key) pair with equal ids: each key
+    tile's list holds the q tile of every query that meets one of its
+    keys."""
+    seg = torch.from_numpy(_seg_kind(kind, 5 * N + 1, 4, N))
+    tiles, counts = flash_tile_schedule_plain(seg, 64, 64)
+    listed = dkv_tile_lists(tiles)  # [B, key tile, q tile]
+    assert torch.equal(listed, listed.transpose(1, 2))
+    assert torch.equal(listed.sum(-1), counts.long())
+    pos = torch.arange(N) // 64
+    walked = listed[:, pos][:, :, pos]  # [B, key, query]
+    meet = seg[:, :, None] == seg[:, None, :]
+    assert not (meet & ~walked).any()
+
+
+@pytest.mark.parametrize("kind", ["runs", "shuffled", "wide", "allpad"])
+def test_dkv_on_q_tile_lists_matches_plain(kind):
+    """dK and dV summed, as K3 sums them, only over the q tiles on each key
+    tile's list equal the dense plain backward (fp32, 1e-6 relative to the
+    gradient's scale: the same sums with masked terms left out)."""
+    B, N, h, d = 3, 201, 2, 64
+    q, k, v = (torch.from_numpy(t) for t in _qkv(N + 11, B, N, h, d))
+    do = torch.from_numpy(_qkv(N + 12, B, N, h, d)[0])
+    seg = torch.from_numpy(_seg_kind(kind, N + 13, B, N))
+    o, lse = attention_plain(q, k, v, seg)
+    _, want_dk, want_dv = attention_bwd_plain(q, k, v, o, lse, do, seg)
+    pos = torch.arange(N) // 64
+    walked = dkv_tile_lists(flash_tile_schedule_plain(seg)[0])[:, pos][:, :, pos]
+    keep = (seg[:, :, None] == seg[:, None, :]) & walked.transpose(1, 2)  # [B, q, k]
+    logits = torch.einsum("bqhd,bkhd->bhqk", q, k) * d ** -0.5
+    p = torch.where(keep[:, None], torch.exp(logits - lse[..., None]), 0.0)
+    delta = (do * o).sum(-1).transpose(1, 2)
+    dv = torch.einsum("bhqk,bqhd->bkhd", p, do)
+    ds = p * (torch.einsum("bqhd,bkhd->bhqk", do, v) - delta[..., None])
+    dk = torch.einsum("bhqk,bqhd->bkhd", ds, q) * d ** -0.5
+    for got, want in ((dk, want_dk), (dv, want_dv)):
+        np.testing.assert_allclose(got.numpy(), want.numpy(),
+                                   atol=1e-6 * float(want.abs().max()))
+
+
+def test_library_name_sees_included_headers(tmp_path):
+    """A kernel's library is named by the hash of its source, of every
+    header it includes with quotes and of the flags: editing the shared
+    Hopper header renames the libraries of the sources that include it, so
+    no stale build is loaded, and leaves the others alone."""
+    csrc = REPO / "dinov3_tpu_torch" / "csrc"
+    for name in ("flash_bwd_dkv.cu", "flash_bwd_dq.cu", "hopper.cuh"):
+        shutil.copy(csrc / name, tmp_path / name)
+    dkv = CudaKernel("flash_bwd_dkv", tmp_path / "flash_bwd_dkv.cu", [])
+    dq = CudaKernel("flash_bwd_dq", tmp_path / "flash_bwd_dq.cu", [])
+    assert source_files(dkv.source) == [tmp_path / "flash_bwd_dkv.cu",
+                                        tmp_path / "hopper.cuh"]
+    before = (dkv.library, dq.library)
+    assert dkv.library == CudaKernel("flash_bwd_dkv", "flash_bwd_dkv.cu", []).library
+    header = tmp_path / "hopper.cuh"
+    header.write_bytes(header.read_bytes() + b"// edited\n")
+    assert dkv.library != before[0] and dq.library == before[1]
+    header.write_bytes((csrc / "hopper.cuh").read_bytes())
+    assert (dkv.library, dq.library) == before
+
+
 def _load_chip_smoke():
     spec = importlib.util.spec_from_file_location("chip_smoke", REPO / "chip_smoke.py")
     mod = importlib.util.module_from_spec(spec)
@@ -248,6 +328,23 @@ def test_serve_pack_visited_share_is_pinned():
             assert (int(counts.sum()), tiles.numel()) == (listed, total)
 
 
+def test_dkv_walked_share_at_training_seg():
+    """The share of (key tile, q tile) pairs K3 walks equals K1's share of
+    (q tile, key tile) pairs: 1080 of 1296 (83.3 %) at the student block's
+    seg plane of ``chip_smoke.py`` (B = 32, after a drop-path subset), and
+    110 of 128 on the whole packed layout at B = 2."""
+    from dinov3_tpu_torch.ops.packing import make_packed_layout, packed_segment_ids
+
+    layout = make_packed_layout(n_global_rows=4, n_local=16, seq_global=197,
+                                seq_local=37, n_prefix=1)
+    for seg, want in ((_load_chip_smoke().train_attention_seg(), (1080, 1296)),
+                      (packed_segment_ids(layout), (110, 128))):
+        tiles, counts = flash_tile_schedule_plain(torch.from_numpy(seg))
+        listed = dkv_tile_lists(tiles)
+        assert (int(listed.sum()), listed.numel()) == want
+        assert int(counts.sum()) == want[0]
+
+
 @pytest.mark.parametrize("D,dtype,addresses,want", [
     (1, torch.bfloat16, (0, 16), 0),         # not a whole 16-byte vector
     (96, torch.bfloat16, (0, 16), 1),        # 12 vectors: one a lane
@@ -259,6 +356,11 @@ def test_serve_pack_visited_share_is_pinned():
     (4096, torch.bfloat16, (0, 16), 0),      # past the cap
     (1000, torch.float32, (0, 16), 8),
     (1024, torch.bfloat16, (0, 2), 0),       # a misaligned storage offset
+    # K5's choice, from the addresses of x, g and dx
+    (1024, torch.bfloat16, (0, 16, 32), 4),  # a student block's norm
+    (1024, torch.bfloat16, (0, 16, 34), 0),  # dx misaligned
+    (2048, torch.float32, (0, 16, 32), 16),
+    (1001, torch.bfloat16, (0, 16, 32), 0),  # not whole vectors
 ])
 def test_layernorm_path_choice(D, dtype, addresses, want):
     assert layernorm_vec_path(D, dtype, addresses) == want
@@ -546,6 +648,21 @@ def test_cuda_wrappers_raise_instead_of_falling_back(cuda_device):
     with pytest.raises(ValueError, match="bf16 or fp32"):
         fused_layernorm(x, torch.ones(64, device=cuda_device),
                         torch.zeros(64, device=cuda_device))
+    # K3's q-tile lists: a schedule of the wrong shape, or one given to the
+    # fp32 kernel, raises before anything is launched
+    q = torch.randn(2, 130, 2, 64, device=cuda_device, dtype=torch.bfloat16)
+    seg = torch.zeros(2, 130, dtype=torch.int32, device=cuda_device)
+    out, lse, (tiles, counts) = flash_fwd(q, q, q, seg)
+    _, delta = flash_bwd_dq(q, q, q, out, lse, q, seg)
+    before = FLASH_BWD_DKV.launches
+    for bad in ((tiles[:, :2], counts), (tiles, counts[:1]),
+                (tiles.long(), counts), (tiles.cpu(), counts)):
+        with pytest.raises(ValueError, match="schedule"):
+            flash_bwd_dkv(q, q, q, lse, delta, q, seg, bad)
+    qf = q.float()
+    with pytest.raises(ValueError, match="schedule"):
+        flash_bwd_dkv(qf, qf, qf, lse, delta, qf, seg, (tiles, counts))
+    assert FLASH_BWD_DKV.launches == before
 
 
 def _bwd_tol(want: np.ndarray, dtype) -> float:
@@ -553,27 +670,50 @@ def _bwd_tol(want: np.ndarray, dtype) -> float:
     return (2.0 ** -6 if dtype == torch.bfloat16 else 1e-4) * mag
 
 
+def _bwd_seg(kind, B, N):
+    """[B, N] int32 ids for the backward cases: None, ``packed`` (the
+    student block's plane of ``chip_smoke.py``, B = 81, N = 197), 5 sorted
+    ``runs`` with a pad tail, or a schedule kind of ``_seg_kind``."""
+    if kind is None:
+        return None
+    if kind == "packed":
+        seg = _load_chip_smoke().train_attention_seg()
+        assert seg.shape == (B, N)
+        return seg
+    if kind == "runs5":
+        return _seg(N, B, N, 5)
+    return _seg_kind(kind, N + 2, B, N)
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("B,N,h,d,dtype,n_seg,v_view", [
-    (81, 197, 16, 64, "bfloat16", 5, True),   # the training shape, v a view
-    (2, 201, 3, 64, "bfloat16", 0, False),     # ragged, no segments
-    (1, 130, 2, 128, "bfloat16", 3, False),    # head_dim 128
-    (2, 97, 2, 64, "float32", 3, True),
-    (1, 200, 2, 128, "float32", 0, False),
+@pytest.mark.parametrize("B,N,h,d,dtype,seg_kind,v_view", [
+    (81, 197, 16, 64, "bfloat16", "runs5", True),   # the training shape, v a view
+    (81, 197, 16, 64, "bfloat16", "packed", True),  # ... with the packed ids
+    (2, 201, 3, 64, "bfloat16", None, False),       # ragged, no segments
+    (3, 201, 4, 64, "bfloat16", "shuffled", True),  # ragged N = 201, K3 skips
+    (3, 201, 4, 64, "bfloat16", "allpad", False),   # a row of pad tokens only
+    (3, 201, 4, 64, "bfloat16", "wide", False),     # ids over the int32 range
+    (2, 64, 2, 64, "bfloat16", "shuffled", False),  # one whole tile
+    (2, 5, 2, 64, "bfloat16", "runs", False),       # less than a tile
+    (1, 130, 2, 128, "bfloat16", "runs5", False),   # head_dim 128
+    (2, 97, 2, 64, "float32", "runs5", True),
+    (1, 200, 2, 128, "float32", None, False),
 ])
-def test_flash_bwd_kernels_match_plain(cuda_device, B, N, h, d, dtype, n_seg,
+def test_flash_bwd_kernels_match_plain(cuda_device, B, N, h, d, dtype, seg_kind,
                                        v_view):
-    """K2 and K3 through the autograd Function against the plain backward
-    on the same inputs and the kernels' own O and LSE; two runs give the
-    same bits (no atomics)."""
+    """K2 and K3 through the autograd Function (K3 walking the forward's
+    tile schedule where it has one) against the plain backward on the same
+    inputs and the kernels' own O and LSE; two runs give the same bits (no
+    atomics)."""
     dt = getattr(torch, dtype)
     q, k, v = (torch.from_numpy(t).to(cuda_device, dt)
                for t in _qkv(N + 5, B, N, h, d))
     if v_view:
         fused = torch.cat([q, k, v], dim=2).reshape(B, N, 3 * h * d)
         v = fused[..., 2 * h * d:].reshape(B, N, h, d)
-    seg = (torch.from_numpy(_seg(N, B, N, n_seg)).to(cuda_device)
-           if n_seg else None)
+        assert not v.is_contiguous()
+    seg = _bwd_seg(seg_kind, B, N)
+    seg = None if seg is None else torch.from_numpy(seg).to(cuda_device)
     ct = torch.from_numpy(_qkv(N + 6, B, N, h, d)[0]).to(cuda_device, dt)
     grads = []
     for _ in range(2):
@@ -597,12 +737,23 @@ def test_flash_bwd_kernels_match_plain(cuda_device, B, N, h, d, dtype, n_seg,
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("R,D,dtype,pdtype", [
-    (22852, 1024, "bfloat16", "float32"),   # the training shape
+    (22852, 1024, "bfloat16", "float32"),   # all packed student rows
+    (15957, 1024, "bfloat16", "float32"),   # a student block's norm
     (1000, 96, "bfloat16", "float32"),       # width below one CTA
     (37, 64, "float32", "float32"),
     (3, 4096, "float32", "bfloat16"),        # widest instance
+    (77, 1000, "bfloat16", "bfloat16"),      # 125 vectors a row
+    (77, 1000, "float32", "float32"),
+    (100, 1024, "bfloat16", "bfloat16"),     # fewer rows than CTAs
+    (100, 1024, "float32", "bfloat16"),
+    (50, 2048, "bfloat16", "float32"),       # sums in shared memory
+    (50, 2048, "float32", "float32"),
+    (9, 4096, "bfloat16", "bfloat16"),       # the general path
+    (9, 1001, "bfloat16", "float32"),        # not whole vectors
 ])
 def test_layernorm_bwd_kernel_matches_plain(cuda_device, R, D, dtype, pdtype):
+    """K5 through the autograd Function against the plain backward, on its
+    vector path and its general path; two runs give the same bits."""
     g = torch.Generator().manual_seed(R)
     x = (torch.randn(R, D, generator=g) * 3 + 1).to(cuda_device, getattr(torch, dtype))
     s = (torch.randn(D, generator=g) * 0.5 + 1).to(cuda_device, getattr(torch, pdtype))

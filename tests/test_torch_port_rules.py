@@ -26,7 +26,7 @@ def _imported_modules(path: Path):
 
 
 def _port_files():
-    return sorted(PORT.rglob("*.py")) + [REPO / "chip_smoke.py"]
+    return sorted(PORT.rglob("*.py")) + [REPO / "chip_smoke.py", REPO / "chip_ab_step.py"]
 
 
 @pytest.mark.parametrize("path", _port_files(),
