@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Times the port's training step and its backward kernels K3 and K5 from
-several checkouts of this repository, in turns, on one NVIDIA card.
+"""Times the port's training step and its backward kernels K2, K3 and K5
+from several checkouts of this repository, in turns, on one NVIDIA card.
 
     python3 chip_ab_step.py DIR_A DIR_B [DIR ...]
 
@@ -10,10 +10,10 @@ one). The checkouts run in the order given, each in a process of its own
 that imports the port from that checkout and builds its kernels there; give
 them in turns (A B B A) to see the drift within the call. Each run times,
 with that checkout's own wrappers:
-- K3 (flash-attention dK/dV) at a student block's attention, [81 x 16,
-  197, 64] bf16 with the packed ids, and K5 (LayerNorm backward) at a
-  student block's norm, [15957, 1024] bf16 with an fp32 scale: device
-  time per call (``chip_smoke.cuda_ms``);
+- K2 (flash-attention dQ) and K3 (dK/dV) at a student block's attention,
+  [81 x 16, 197, 64] bf16 with the packed ids, and K5 (LayerNorm
+  backward) at a student block's norm, [15957, 1024] bf16 with an fp32
+  scale: device time per call (``chip_smoke.cuda_ms``);
 - the SSL training step at ViT-L/16 full width and depth, B = 32
   (``chip_smoke.py`` phase E's configuration and seeds): a warm-up step,
   then 5 steps, host clock around each, synchronized; median and mean.
@@ -23,6 +23,7 @@ non-zero without a card or if a run fails.
 
 from __future__ import annotations
 
+import inspect
 import json
 import os
 import subprocess
@@ -59,16 +60,19 @@ def one_run(tree: str) -> dict:
     do = torch.randn(q.shape, generator=g).to(dev, torch.bfloat16)
     fwd = flash_fwd(q, k, v, seg)
     out, lse = fwd[:2]
-    # a checkout whose forward hands K3 its tile schedule passes it on,
-    # as its autograd Function does
+    # a checkout whose forward hands the backward its tile schedule passes
+    # it on to each kernel whose wrapper takes one, as its autograd
+    # Function does
     extra = fwd[2:]
-    _, delta = flash_bwd_dq(q, k, v, out, lse, do, seg)
+    extra_dq = extra if "schedule" in inspect.signature(flash_bwd_dq).parameters else ()
+    _, delta = flash_bwd_dq(q, k, v, out, lse, do, seg, *extra_dq)
+    k2_ms = smoke.cuda_ms(lambda: flash_bwd_dq(q, k, v, out, lse, do, seg, *extra_dq), 20)
     k3_ms = smoke.cuda_ms(lambda: flash_bwd_dkv(q, k, v, lse, delta, do, seg, *extra), 20)
     x = (torch.randn(81 * 197, 1024, generator=g) * 3 + 1).to(dev, torch.bfloat16)
     dy = torch.randn(x.shape, generator=g).to(dev, torch.bfloat16)
     s = (torch.randn(1024, generator=g) * 0.5 + 1).to(dev)
     k5_ms = smoke.cuda_ms(lambda: layernorm_bwd(x, s, dy), 50)
-    del qkv, q, k, v, do, out, lse, delta, fwd, extra, x, dy
+    del qkv, q, k, v, do, out, lse, delta, fwd, extra, extra_dq, x, dy
 
     cfg = load_config(os.path.join(tree, "configs", "train", "vitl16_im1k.yaml"),
                       smoke.TRAIN_OVERRIDES, n_devices=1)
@@ -86,7 +90,7 @@ def one_run(tree: str) -> dict:
         times.append((time.perf_counter() - t0) * 1e3)
         if not np.isfinite(m["total_loss"]):
             raise RuntimeError(f"{tree}: non-finite loss {m}")
-    return {"tree": tree, "k3_ms": k3_ms, "k5_ms": k5_ms,
+    return {"tree": tree, "k2_ms": k2_ms, "k3_ms": k3_ms, "k5_ms": k5_ms,
             "step_median_ms": float(np.median(times)),
             "step_mean_ms": float(np.mean(times)), "steps_ms": times,
             "card": torch.cuda.get_device_name(0)}

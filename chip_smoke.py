@@ -54,6 +54,7 @@ import gc
 import itertools
 import json
 import os
+import re
 import subprocess
 import sys
 import time
@@ -184,9 +185,37 @@ def phase_a():
     print(f"[A] kernel build {time.perf_counter() - t0:.1f} s wall "
           f"(rebuilt: {sorted(built) or 'none, cached'})")
     for k in KERNELS.values():
-        regs = [ln.strip() for ln in k.build_log.splitlines()
-                if "registers" in ln or "spill" in ln]
-        print(f"[A] {k.name}: " + " | ".join(regs))
+        print(f"[A] {k.name}: " + "; ".join(ptxas_summary(k.build_log)))
+
+
+def _entry_name(mangled: str) -> str:
+    """The kernel's name in a mangled symbol (the last length-prefixed
+    name that starts with flash or layernorm), with its template argument."""
+    found = mangled
+    for m in re.finditer(r"(\d+)((?:flash|layernorm)\w*)", mangled):
+        digits, rest = m.groups()
+        # the longest suffix of the digits that is the name's length
+        n = next((int(digits[i:]) for i in range(len(digits))
+                  if int(digits[i:]) <= len(rest)), None)
+        if n is not None:
+            t = re.match(r"ILi(\d+)E", rest[n:])
+            found = rest[:n] + (f"<{t.group(1)}>" if t else "")
+    return found
+
+
+def ptxas_summary(log: str) -> list[str]:
+    """'entry: R registers, S bytes spilled' for each kernel entry of an
+    ``nvcc -Xptxas -v`` log, the entry named by its function and template
+    argument (``flash_bwd_dq_wgmma``, ``flash_fwd_bf16<128>``)."""
+    out, entry, spill = [], "?", "?"
+    for ln in log.splitlines():
+        if m := re.search(r"Function properties for (\S+)", ln):
+            entry = _entry_name(m.group(1))
+        elif m := re.search(r"(\d+) bytes spill stores", ln):
+            spill = m.group(1)
+        elif m := re.search(r"Used (\d+) registers", ln):
+            out.append(f"{entry}: {m.group(1)} registers, {spill} bytes spilled")
+    return out
 
 
 # ---------------------------------------------------------------- phase B
@@ -682,13 +711,13 @@ def check_flash_bwd(q, k, v, seg, label, time_it=False) -> dict:
     g = torch.Generator().manual_seed(q.shape[1])
     do = torch.randn(q.shape, generator=g).to(q.device, q.dtype)
     out, lse, schedule = flash_fwd(q, k, v, seg)
-    # K3 walks K1's schedule where it reads one (bf16 with seg), as in the
-    # autograd Function
+    # K2 and K3 walk K1's schedule where they read one (bf16 with seg), as
+    # in the autograd Function
     if q.dtype != torch.bfloat16:
         schedule = None
     runs = []
     for _ in range(2):
-        dq, delta = flash_bwd_dq(q, k, v, out, lse, do, seg)
+        dq, delta = flash_bwd_dq(q, k, v, out, lse, do, seg, schedule)
         dk, dv = flash_bwd_dkv(q, k, v, lse, delta, do, seg, schedule)
         runs.append((dq, dk, dv))
     torch.cuda.synchronize()
@@ -711,16 +740,20 @@ def check_flash_bwd(q, k, v, seg, label, time_it=False) -> dict:
         elt = B * N * H * D * q.element_size()
         rowb = B * H * N * 4
         segb = 0 if seg is None else seg.numel() * 4
+        # the share of (q tile, key tile) pairs K2 walks, K1's share; K3
+        # walks as many (key tile, q tile) pairs, the schedule being
+        # symmetric
+        walked = 1.0 if schedule is None else (
+            schedule[1].sum().item() / schedule[0].numel())
         k2 = result["K2"]
-        k2["ms"] = cuda_ms(lambda: flash_bwd_dq(q, k, v, out, lse, do, seg), 20)
+        k2["walked_share"] = walked
+        k2["ms"] = cuda_ms(
+            lambda: flash_bwd_dq(q, k, v, out, lse, do, seg, schedule), 20)
         # K2 reads q, k, v, O, dO and LSE, writes dQ and Delta; 3 products
         k2["bound_ms"], k2["bound_by"] = bound(
             6 * elt + 2 * rowb + segb, 6 * D * H * pairs, BF16_TC_FLOP_S)
         k3 = result["K3"]
-        # the share of (key tile, q tile) pairs K3 walks: by the schedule's
-        # symmetry, the share of K1's (q tile, key tile) pairs
-        k3["walked_share"] = 1.0 if schedule is None else (
-            schedule[1].sum().item() / schedule[0].numel())
+        k3["walked_share"] = walked
         k3["ms"] = cuda_ms(
             lambda: flash_bwd_dkv(q, k, v, lse, delta, do, seg, schedule), 20)
         # K3 reads q, k, v, dO, LSE and Delta, writes dK and dV; 4 products
@@ -746,10 +779,11 @@ def check_flash_bwd(q, k, v, seg, label, time_it=False) -> dict:
         for r in (k2, k3):
             r["plain_ms"], r["library_ms"] = plain, lib
         print(f"[B'] K2 {label}: kernel {k2['ms']:.4f} ms  bound {k2['bound_ms']:.4f} ms "
-              f"({k2['bound_by']});  K3: kernel {k3['ms']:.4f} ms  bound "
-              f"{k3['bound_ms']:.4f} ms ({k3['bound_by']}), q tiles walked "
-              f"{k3['walked_share']:.4f};  plain backward "
-              f"{plain:.4f} ms, library backward (dQ+dK+dV) {lib:.4f} ms")
+              f"({k2['bound_by']}), key tiles walked {k2['walked_share']:.4f};  K3: "
+              f"kernel {k3['ms']:.4f} ms  bound {k3['bound_ms']:.4f} ms "
+              f"({k3['bound_by']}), q tiles walked {k3['walked_share']:.4f};  K2 + K3 "
+              f"{k2['ms'] + k3['ms']:.4f} ms;  plain backward {plain:.4f} ms, library "
+              f"backward (dQ+dK+dV) {lib:.4f} ms")
     return result
 
 
@@ -1161,7 +1195,8 @@ def main() -> int:
             "max_abs_err": r["max_abs_err"], "ms": r["ms"],
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
             "bound_by": r["bound_by"], "library_ms": r["library_ms"],
-            **{k: r[k] for k in ("cold_ms", "visited_share", "train_shapes") if k in r},
+            **{k: r[k] for k in ("cold_ms", "visited_share", "walked_share", "train_shapes")
+               if k in r},
         })
     print(f"[smoke] train step {step['ms']:.1f} ms, "
           f"{TRAIN_B / step['ms'] * 1e3:.2f} img/s, peak {step['peak_gib']:.2f} GiB")

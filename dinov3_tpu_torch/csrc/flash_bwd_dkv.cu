@@ -108,17 +108,8 @@ struct Args {
 
 // The q tiles a CTA of key tile kt visits: row kt of K1's schedule (see the
 // note above: the 64 x 64 schedule is symmetric), or every 64-row q tile.
-struct TileList {
-  const int* list;
-  int count;
-  __device__ __forceinline__ int operator[](int i) const { return list ? list[i] : i; }
-};
-
-__device__ __forceinline__ TileList q_tile_list(const Args& a, int kt, int b) {
-  const int nt = (a.N + 63) / 64;  // key tiles, and as many q tiles
-  if (!a.tiles) return TileList{nullptr, nt};
-  const long long row = static_cast<long long>(b) * nt + kt;
-  return TileList{a.tiles + row * nt, a.counts[row]};
+__device__ __forceinline__ hopper::TileList q_tile_list(const Args& a, int kt, int b) {
+  return hopper::schedule_row(a.tiles, a.counts, (a.N + 63) / 64, kt, b);
 }
 
 // ------------------------------- bf16 helpers, and the head_dim-128 body
@@ -250,7 +241,7 @@ __global__ void __launch_bounds__(128) flash_bwd_dkv_bf16(Args a) {
     dv[i][0] = dv[i][1] = dv[i][2] = dv[i][3] = 0.f;
   }
 
-  const TileList tl = q_tile_list(a, blockIdx.x, b);
+  const hopper::TileList tl = q_tile_list(a, blockIdx.x, b);
   for (int it = 0; it < tl.count; ++it) {
     const int q0 = tl[it] * kBQ;
     load_tile<D, LD>(sQ, qb, a.q_sn, q0, N);
@@ -333,14 +324,6 @@ constexpr int kRowOffset = kTileBytes * (2 * kKv + 2 * kStages);
 constexpr int kBarOffset = kRowOffset + 3 * kStages * kRows * 4;
 constexpr int kSmemBytes = 1024 + kBarOffset + 8 * (2 * kKv + 2 * kStages);
 
-// Accumulators of 64 x 64 (keys x q rows) as the bf16 A fragments of a
-// product contracting over the q rows: columns [16kk, 16kk + 16) of the
-// accumulator are exactly the A fragment of k-step kk.
-__device__ __forceinline__ void pack_frags(uint32_t (&a)[16], const float (&x)[32]) {
-#pragma unroll
-  for (int i = 0; i < 16; ++i) a[i] = pack_bf16(x[2 * i], x[2 * i + 1]);
-}
-
 // P^T and dS^T of one q tile in place of S^T (sc) and dP^T (dp), for this
 // thread's keys (ids sk_lo, sk_hi) and q columns 8c + 2t + e: lse2 holds
 // the q rows' LSE in log2 units (+inf past N), delta their Delta, seg their
@@ -364,29 +347,6 @@ __device__ __forceinline__ void form_p_ds(float (&sc)[32], float (&dp)[32], cons
     }
   }
 }
-
-// One work item: a 64-key tile kt of head h of batch row b.
-struct Item {
-  int kt, h, b;
-};
-
-// A CTA's items in order: blockIdx.x, blockIdx.x + gridDim.x, ... of all
-// nT * H * B (key tile fastest).
-struct Items {
-  int next, total, nt, H;
-  __device__ __forceinline__ Items(const Args& a) {
-    nt = (a.N + kRows - 1) / kRows;
-    H = a.H;
-    next = blockIdx.x;
-    total = nt * a.H * a.B;
-  }
-  __device__ __forceinline__ bool get(Item& it) {
-    if (next >= total) return false;
-    it = Item{next % nt, (next / nt) % H, next / (nt * H)};
-    next += gridDim.x;
-    return true;
-  }
-};
 
 // A persistent grid (as many CTAs as fit on the SMs) walks the items; the
 // producer loads the next item's K and V (the other slot) and q tiles
@@ -428,7 +388,7 @@ __global__ void __launch_bounds__(kThreads, 2)
   }
   __syncthreads();
 
-  Items items(a);
+  Items items((N + kRows - 1) / kRows, a.H, a.B);
   Item item;
   if (threadIdx.x >= 128) {
     // ---- producer warp: lane 0 issues the copies, all 32 lanes copy the
@@ -438,7 +398,7 @@ __global__ void __launch_bounds__(kThreads, 2)
     int gi = 0;
     for (int j = 0; items.get(item); ++j) {
       const int slot = j % kKv;
-      const int k0 = item.kt * kRows;
+      const int k0 = item.tile * kRows;
       // the slot's previous item (j - kKv) has been released
       if (j >= kKv) mbar_wait(bar_kve(slot), ((j / kKv) & 1) ^ 1);
       if (lane == 0) {
@@ -446,7 +406,7 @@ __global__ void __launch_bounds__(kThreads, 2)
         tma_load(s_k + slot * kTileBytes, &map_k, bar_kvf(slot), item.h, k0, item.b);
         tma_load(s_v + slot * kTileBytes, &map_v, bar_kvf(slot), item.h, k0, item.b);
       }
-      const TileList tl = q_tile_list(a, item.kt, item.b);
+      const TileList tl = q_tile_list(a, item.tile, item.b);
       const int* segb = a.seg ? a.seg + static_cast<long long>(item.b) * N : nullptr;
       const long long bh = static_cast<long long>(item.b) * a.H + item.h;
       for (int it = 0; it < tl.count; ++it, ++gi) {
@@ -485,8 +445,8 @@ __global__ void __launch_bounds__(kThreads, 2)
   for (int j = 0; items.get(item); ++j) {
     const int slot = j % kKv;
     const uint32_t k_tile = s_k + slot * kTileBytes, v_tile = s_v + slot * kTileBytes;
-    const int n_lo = item.kt * kRows + warp * 16 + g, n_hi = n_lo + 8;
-    const TileList tl = q_tile_list(a, item.kt, item.b);
+    const int n_lo = item.tile * kRows + warp * 16 + g, n_hi = n_lo + 8;
+    const TileList tl = q_tile_list(a, item.tile, item.b);
     // without ids every key and q row carries 0; keys past N are never
     // written, so their ids do not matter
     int sk_lo = 0, sk_hi = 0;
@@ -556,23 +516,12 @@ cudaError_t launch(const Args& a, cudaStream_t st) {
       !make_map(&mv, a.v, a.B, a.N, a.H, a.v_sb, a.v_sn, a.v_sh) ||
       !make_map(&md, a.dout, a.B, a.N, a.H, a.d_sb, a.d_sn, a.d_sh))
     return cudaErrorInvalidValue;
-  static int ctas_per_sm = 0;  // also "configured"
-  if (!ctas_per_sm) {
-    cudaError_t err = cudaFuncSetAttribute(flash_bwd_dkv_wgmma,
-                                           cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                           kSmemBytes);
-    if (err == cudaSuccess)
-      err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&ctas_per_sm, flash_bwd_dkv_wgmma,
-                                                          kThreads, kSmemBytes);
-    if (err != cudaSuccess) return err;
-    if (ctas_per_sm < 1) return cudaErrorInvalidConfiguration;
-  }
-  int device = 0, sms = 0;
-  cudaError_t err = cudaGetDevice(&device);
-  if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
-  if (err != cudaSuccess) return err;
+  static int ctas_per_sm = 0;
   const long long items = static_cast<long long>((a.N + kRows - 1) / kRows) * a.H * a.B;
-  const int grid = static_cast<int>(items < sms * ctas_per_sm ? items : sms * ctas_per_sm);
+  int grid = 0;
+  const cudaError_t err =
+      persistent_grid(flash_bwd_dkv_wgmma, kThreads, kSmemBytes, items, ctas_per_sm, grid);
+  if (err != cudaSuccess) return err;
   flash_bwd_dkv_wgmma<<<grid, kThreads, kSmemBytes, st>>>(mq, mk, mv, md, a);
   return cudaGetLastError();
 }

@@ -9,38 +9,79 @@
 //   dS    = P * (dO V^T - Delta)
 //   dQ    = scale * dS K
 // A key is masked when it lies past N or, with segment ids, when its id is
-// not the q row's (the forward's -1e30 logits, whose exp(-1e30 - LSE) is 0).
-// Delta is written to a [B, H, N] fp32 buffer for the dK/dV kernel
-// (csrc/flash_bwd_dkv.cu), which runs after this one on the same stream.
+// not the q row's (the forward's -1e30 logits, whose exp(-1e30 - LSE) is 0);
+// a pad token (id -1) meets its own pad segment. Delta is written to a
+// [B, H, N] fp32 buffer for the dK/dV kernel (csrc/flash_bwd_dkv.cu), which
+// runs after this one on the same stream.
 //
 // What bounds it: the three products over the segment pairs (S, dO V^T and
-// dS K: 6 * d * pairs per head) against the bytes of q, k, v, O, dO, LSE and
-// dQ. At the training shapes ([81 rows x 16 heads, 197, 64] bf16, packed
-// segments) the tensor-core work and the 24 MB of operands take about the
-// same least time, a few tens of microseconds; this first kernel is far from
-// either, bound in practice by its un-pipelined tile loads and the
-// exponentials of the masked tiles it does not skip.
+// dS K: 6 * d * pairs a head) against the bytes of q, k, v, O, dO, LSE, dQ
+// and Delta. At a student block of the training step ([81 x 16, 197, 64]
+// bf16 with the packed ids) the bytes bound it (0.059 ms, against ~0.015
+// ms of tensor-core work). What held the first port of this kernel far
+// above that: synchronous tile loads that nothing overlapped, a prologue
+// (Q and dO staged, O read for Delta) that ran alone in each short-lived
+// CTA (4 key tiles at N = 197), and the masked key tiles it walked. What
+// is left is latency: a key tile's products and its dS depend on each
+// other in turn, so the SM hides one CTA's waits behind the other CTAs'
+// work, and the design packs three CTAs onto each SM.
 //
 // What the design does:
-// - bf16: `mma.sync.m16n8k16` (fp32 accumulate), one CTA of 4 warps per
-//   (64-row q tile, head, batch row), each warp owning 16 q rows. Q and dO
-//   stay in registers as A fragments; K and V tiles of 64 keys are staged
-//   through padded shared memory (row pitch d + 8 halves). S and dO V^T are
-//   two products over the same fragments, the masked softmax and dS stay in
-//   registers, and dS is rounded to bf16 to be the A operand of dS K, as the
-//   forward rounds P for P V. Delta comes from the dO fragments already in
-//   registers times O read once, reduced over the quad of threads that holds
-//   a row.
+// - Skipping. With segment ids a q tile walks only the key tiles on its
+//   row of K1's 64 x 64 tile schedule, which the forward built and the
+//   caller keeps: row i is, by construction, the list of the key tiles
+//   that can hold a key whose id equals the id of a query in q tile i, so
+//   a skipped key tile would add exactly 0 (all its P are masked). Without
+//   segment ids every key tile is walked.
+// - bf16, head_dim 64 (every ViT up to ViT-L): TMA + wgmma, on the
+//   building blocks of csrc/hopper.cuh, the mirror of K3's body. A CTA of
+//   one consumer warpgroup and one producer warp takes (64-row q tile,
+//   head, batch row) items on a persistent grid, q tile fastest, so that
+//   the q tiles of one (b, h) run together and find its K and V in L2. The
+//   producer loads an item's Q and dO into one of two slots and its O
+//   into one tile that is free again as soon as Delta is formed, so the
+//   next item's arrive while the consumers finish this one, then streams
+//   the listed K and V tiles through a two-stage mbarrier ring (4-D tensor
+//   maps over [B, N, h, d] through the tensors' strides, 128-byte swizzle;
+//   rows past N arrive as zeros). Its 32 lanes copy the q rows' LSE (in
+//   log2 units, +inf past N so that P is 0 there) and ids beside the slot,
+//   and each key tile's ids beside the tile. The consumer first forms
+//   Delta from the dO and O boxes in shared memory (two threads a row, so
+//   no load of the prologue is exposed), writes it once for the rows < N
+//   and hands each row's Delta to the threads that own the row in the
+//   wgmma layout by shuffles. Per key tile it issues S = Q K^T and dP =
+//   dO V^T (wgmma from shared memory, both K-major), forms P = exp2(S
+//   scale log2(e) - LSE) with the masks (`ex2.approx`) and dS = P (dP -
+//   Delta) in fp32 registers, rounds dS to bf16 in the accumulator layout,
+//   which is the A-fragment layout, and issues dQ += dS K with the same K
+//   box read MN-major (the transposed-B mode). The CTA does not overlap
+//   its own products: issuing the next tile's S and dP before this tile's
+//   dQ product held the body at the 168-register cap of two CTAs an SM and
+//   was slower. Instead the body fits 128 registers and its shared memory
+//   75 KB, so three CTAs share each SM and fill each other's waits. Keys
+//   past N arrive as zeros, so S = 0 there and exp2(0 - LSE) is not 0: the
+//   mask tests the key's index against N, never a sentinel id (the ids may
+//   take every int32 value). dQ stays in fp32 registers for the whole walk
+//   and is written once: no atomics, so two runs give the same bits.
+// - bf16, head_dim 128 (no caller on the main path): `mma.sync.m16n8k16`
+//   (fp32 accumulate), one CTA of 4 warps per (64-row q tile, head, batch
+//   row), each warp owning 16 q rows, walking the same list. Q and dO stay
+//   in registers as A fragments; K and V tiles of 64 keys are staged
+//   through padded shared memory (row pitch d + 8 halves). The masked
+//   softmax and dS stay in registers, and dS is rounded to bf16 to be the
+//   A operand of dS K. Delta comes from the dO fragments times O read
+//   once, reduced over the quad of threads that holds a row.
 // - fp32: one thread per q row, q, dO and the dQ accumulator in registers,
-//   K/V tiles of 32 keys in shared memory, scalar FMAs, fp32 throughout.
+//   K/V tiles of 32 keys in shared memory, scalar FMAs, fp32 throughout;
+//   every key tile.
 // - q, k, v, O and dO are read through their strides in the [B, N, h, d]
 //   layout (v may be a view of the fused qkv output); dQ is written as a
 //   contiguous [B, N, h, d]. Segment ids are read as [B, N] int32.
-// Later work (not here): wgmma + TMA, and skipping the key tiles whose
-// segment ids cannot meet the q tile's.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "hopper.cuh"
 
 namespace {
 
@@ -53,6 +94,8 @@ struct Args {
   const void* o;
   const void* dout;
   const int* seg;     // [B, N] int32, or nullptr
+  const int* tiles;   // [B, nT, nT] K1's schedule (64 x 64), or nullptr
+  const int* counts;  // [B, nT] its list lengths, or nullptr
   const float* lse;   // [B, H, N] fp32
   float* delta;       // [B, H, N] fp32, written
   void* dq;           // [B, N, H, D] contiguous, input dtype
@@ -65,7 +108,13 @@ struct Args {
   float scale;
 };
 
-// ---------------------------------------------------------------- bf16 path
+// The key tiles a CTA of q tile qt walks: row qt of K1's schedule, or
+// every 64-key tile.
+__device__ __forceinline__ hopper::TileList key_tile_list(const Args& a, int qt, int b) {
+  return hopper::schedule_row(a.tiles, a.counts, (a.N + 63) / 64, qt, b);
+}
+
+// ------------------------------- bf16 helpers, and the head_dim-128 body
 
 __device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4],
                                          uint32_t b0, uint32_t b1) {
@@ -228,7 +277,9 @@ __global__ void __launch_bounds__(128) flash_bwd_dq_bf16(Args a) {
 #pragma unroll
   for (int i = 0; i < D / 8; ++i) acc[i][0] = acc[i][1] = acc[i][2] = acc[i][3] = 0.f;
 
-  for (int k0 = 0; k0 < N; k0 += kBK) {
+  const hopper::TileList tl = key_tile_list(a, blockIdx.x, b);
+  for (int it = 0; it < tl.count; ++it) {
+    const int k0 = tl[it] * kBK;
     load_tile<D, LD>(sK, kb, a.k_sn, k0, N);
     load_tile<D, LD>(sV, vb, a.v_sn, k0, N);
     if (threadIdx.x < kBK) {
@@ -279,6 +330,288 @@ __global__ void __launch_bounds__(128) flash_bwd_dq_bf16(Args a) {
           pack_bf16(acc[i][2] * a.scale, acc[i][3] * a.scale);
   }
 }
+
+// ------------------------------------ bf16, head_dim 64: TMA + wgmma body
+
+namespace wg {
+
+using namespace hopper;
+
+constexpr int kStages = 2;     // K/V ring
+constexpr int kSlots = 2;      // Q/dO slots: this item's and the next one's
+constexpr int kThreads = 160;  // consumer warpgroup + producer warp
+// Shared memory: the Q and dO slots, one O tile (free once Delta is
+// formed) and the K and V rings (each tile 1024-byte aligned: the 128-byte
+// swizzle repeats every 8 rows of 128 bytes), then per slot the q rows' LSE
+// (log2 units) and ids, per stage the keys' ids, then the mbarriers. 75 KB:
+// three CTAs an SM.
+constexpr int kRowOffset = kTileBytes * (2 * kSlots + 1 + 2 * kStages);
+constexpr int kBarOffset = kRowOffset + (2 * kSlots + kStages) * kRows * 4;
+constexpr int kSmemBytes = 1024 + kBarOffset + 8 * 2 * (kSlots + 1 + kStages);
+
+// acc + the dot product of 8 bf16 pairs held in two 16-byte vectors
+__device__ __forceinline__ float dot8(const uint4& x, const uint4& y, float acc) {
+  const uint32_t xs[4] = {x.x, x.y, x.z, x.w}, ys[4] = {y.x, y.y, y.z, y.w};
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const float2 a = bf16_pair(xs[i]), b = bf16_pair(ys[i]);
+    acc = fmaf(a.x, b.x, acc);
+    acc = fmaf(a.y, b.y, acc);
+  }
+  return acc;
+}
+
+// Delta = sum_d dO * O of row r of the TMA boxes at dO and O: this thread
+// sums half `half` of the row, its neighbour (lane ^ 1) the other half.
+// The 128-byte swizzle stores 16-byte chunk c of row r at chunk c ^ (r % 8)
+// (the boxes are 1024-byte aligned).
+__device__ __forceinline__ float row_delta(const uint8_t* dO, const uint8_t* o, int r, int half) {
+  float acc = 0.f;
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int off = r * 128 + (((4 * half + i) ^ (r & 7)) << 4);
+    acc = dot8(*reinterpret_cast<const uint4*>(dO + off), *reinterpret_cast<const uint4*>(o + off),
+               acc);
+  }
+  return acc + __shfl_xor_sync(0xffffffffu, acc, 1);
+}
+
+// What a consumer thread knows of its two q rows (g and g + 8 of its warp's
+// 16): LSE in log2 units (+inf past N), Delta and id.
+struct Rows {
+  float l_lo, l_hi, d_lo, d_hi;
+  int id_lo, id_hi;
+};
+
+// P = exp2(S scale log2(e) - LSE) of one key tile (its first key k0, its
+// keys' ids kid) in place of S (sc), for this thread's q rows and key
+// columns 8c + 2t + e; masked pairs get 0. Keys past N arrive as zeros and
+// are masked by their index.
+__device__ __forceinline__ void form_p(float (&sc)[32], const int* kid, int k0, int N, int t,
+                                       float sl2, const Rows& r) {
+#pragma unroll
+  for (int c = 0; c < 8; ++c) {
+    const int col = 8 * c + 2 * t;
+    const int2 id = *reinterpret_cast<const int2*>(kid + col);
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      const bool in = k0 + col + e < N;
+      const int ke = e ? id.y : id.x;
+      sc[4 * c + e] = in && ke == r.id_lo ? fast_exp2(sc[4 * c + e] * sl2 - r.l_lo) : 0.f;
+      sc[4 * c + 2 + e] = in && ke == r.id_hi ? fast_exp2(sc[4 * c + 2 + e] * sl2 - r.l_hi) : 0.f;
+    }
+  }
+}
+
+// dS = P * (dP - Delta) in place of P.
+__device__ __forceinline__ void form_ds(float (&p)[32], const float (&dp)[32], const Rows& r) {
+#pragma unroll
+  for (int c = 0; c < 8; ++c) {
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      p[4 * c + e] *= dp[4 * c + e] - r.d_lo;
+      p[4 * c + 2 + e] *= dp[4 * c + 2 + e] - r.d_hi;
+    }
+  }
+}
+
+// A persistent grid (as many CTAs as fit on the SMs: three, at 128
+// registers a thread) walks the items; the producer loads the next item's
+// Q and dO (the other slot), O and first key tiles while the consumers
+// finish this one.
+__global__ void __launch_bounds__(kThreads, 3)
+    flash_bwd_dq_wgmma(const __grid_constant__ CUtensorMap map_q,
+                       const __grid_constant__ CUtensorMap map_k,
+                       const __grid_constant__ CUtensorMap map_v,
+                       const __grid_constant__ CUtensorMap map_o,
+                       const __grid_constant__ CUtensorMap map_do, const Args a) {
+  extern __shared__ uint8_t smem_raw[];
+  // 1024-byte aligned base in the shared window
+  const uint32_t raw = smem_u32(smem_raw);
+  uint8_t* smem = smem_raw + (((raw + 1023u) & ~1023u) - raw);
+  const uint32_t s_q = smem_u32(smem);                // slot j at + j * kTileBytes
+  const uint32_t s_do = s_q + kSlots * kTileBytes;
+  const uint32_t s_o = s_do + kSlots * kTileBytes;
+  const uint32_t s_k = s_o + kTileBytes;              // stage s at + s * kTileBytes
+  const uint32_t s_v = s_k + kStages * kTileBytes;
+  float* row_lse = reinterpret_cast<float*>(smem + kRowOffset);  // [kSlots][64]
+  int* row_seg = reinterpret_cast<int*>(row_lse + kSlots * kRows);  // [kSlots][64]
+  int* key_seg = row_seg + kSlots * kRows;                          // [kStages][64]
+  // per Q/dO slot, for the O tile, then per ring stage: full, empty
+  const uint32_t bar = s_q + kBarOffset;
+  auto bar_qf = [&](int j) { return bar + 8 * (2 * j); };
+  auto bar_qe = [&](int j) { return bar + 8 * (2 * j + 1); };
+  const uint32_t bar_of = bar + 8 * (2 * kSlots), bar_oe = bar_of + 8;
+  auto bar_f = [&](int s) { return bar + 8 * (2 * (kSlots + 1) + 2 * s); };
+  auto bar_e = [&](int s) { return bar + 8 * (2 * (kSlots + 1) + 2 * s + 1); };
+  const int N = a.N;
+
+  if (threadIdx.x == 0) {
+    for (int j = 0; j < kSlots; ++j) {
+      mbar_init(bar_qf(j), 1 + 32);  // the copies' expect_tx, then the 32 row copiers
+      mbar_init(bar_qe(j), 128);     // every consumer thread releases the slot
+    }
+    mbar_init(bar_of, 1);
+    mbar_init(bar_oe, 128);
+    for (int s = 0; s < kStages; ++s) {
+      mbar_init(bar_f(s), 1 + 32);
+      mbar_init(bar_e(s), 128);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  Items items((N + kRows - 1) / kRows, a.H, a.B);
+  Item item;
+  if (threadIdx.x >= 128) {
+    // ---- producer warp: lane 0 issues the copies, all 32 lanes copy the
+    // q rows' LSE and ids and the keys' ids. j counts items (the slots'
+    // position), gi key tiles over all items (the ring's).
+    const int lane = threadIdx.x - 128;
+    int gi = 0;
+    for (int j = 0; items.get(item); ++j) {
+      const int slot = j % kSlots;
+      const int q0 = item.tile * kRows;
+      const int* segb = a.seg ? a.seg + static_cast<long long>(item.b) * N : nullptr;
+      const long long bh = static_cast<long long>(item.b) * a.H + item.h;
+      // the slot's previous item (j - kSlots) has been released, and the
+      // previous item's O has been read
+      if (j >= kSlots) mbar_wait(bar_qe(slot), ((j / kSlots) & 1) ^ 1);
+      if (j >= 1) mbar_wait(bar_oe, (j & 1) ^ 1);
+      if (lane == 0) {
+        mbar_expect_tx(bar_qf(slot), 2 * kTileBytes);
+        tma_load(s_q + slot * kTileBytes, &map_q, bar_qf(slot), item.h, q0, item.b);
+        tma_load(s_do + slot * kTileBytes, &map_do, bar_qf(slot), item.h, q0, item.b);
+        mbar_expect_tx(bar_of, kTileBytes);
+        tma_load(s_o, &map_o, bar_of, item.h, q0, item.b);
+      }
+      for (int r = lane; r < kRows; r += 32) {
+        const int n = q0 + r;
+        const bool in = n < N;
+        row_lse[slot * kRows + r] = in ? a.lse[bh * N + n] * kLog2e : __int_as_float(0x7f800000);
+        row_seg[slot * kRows + r] = in && segb ? segb[n] : 0;
+      }
+      mbar_arrive(bar_qf(slot));
+      const TileList tl = key_tile_list(a, item.tile, item.b);
+      for (int it = 0; it < tl.count; ++it, ++gi) {
+        const int s = gi % kStages;
+        // the stage's previous key tile (gi - kStages) has been released
+        if (gi >= kStages) mbar_wait(bar_e(s), ((gi / kStages) & 1) ^ 1);
+        const int k0 = tl[it] * kRows;
+        if (lane == 0) {
+          mbar_expect_tx(bar_f(s), 2 * kTileBytes);
+          tma_load(s_k + s * kTileBytes, &map_k, bar_f(s), item.h, k0, item.b);
+          tma_load(s_v + s * kTileBytes, &map_v, bar_f(s), item.h, k0, item.b);
+        }
+        // keys past N are masked by their index: their ids do not matter
+        for (int r = lane; r < kRows; r += 32) {
+          const int n = k0 + r;
+          key_seg[s * kRows + r] = n < N && segb ? segb[n] : 0;
+        }
+        mbar_arrive(bar_f(s));
+      }
+    }
+    return;
+  }
+
+  // ---- consumer warpgroup: warp w owns q rows [16w, 16w + 16) of the
+  // tile; lane (g, t) holds rows g and g + 8 of them and, in each 8-column
+  // chunk c, columns 8c + 2t and + 1 (csrc/hopper.cuh). Per key tile: S
+  // and dP, then dS in registers, then dQ += dS K; the other CTAs on the
+  // SM fill the tensor cores while this one forms dS.
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const float sl2 = a.scale * kLog2e;
+  const int HD = a.H * kHd;
+  int gi = 0;
+  for (int j = 0; items.get(item); ++j) {
+    const int slot = j % kSlots;
+    const int q0 = item.tile * kRows;
+    const uint32_t q_tile = s_q + slot * kTileBytes, do_tile = s_do + slot * kTileBytes;
+    const TileList tl = key_tile_list(a, item.tile, item.b);
+    mbar_wait(bar_qf(slot), (j / kSlots) & 1);
+    mbar_wait(bar_of, j & 1);
+
+    // Delta of row 16w + lane / 2 (rows past N read zeros and are not
+    // written), then the rows g and g + 8 of this lane from their owners;
+    // the O tile is free once every thread has read its half row
+    const int rd = warp * 16 + (lane >> 1);
+    const float dl = row_delta(smem + (do_tile - s_q), smem + (s_o - s_q), rd, lane & 1);
+    mbar_arrive(bar_oe);
+    if (!(lane & 1) && q0 + rd < N)
+      a.delta[(static_cast<long long>(item.b) * a.H + item.h) * N + q0 + rd] = dl;
+    const int r_lo = warp * 16 + g;
+    Rows rows;
+    rows.d_lo = __shfl_sync(0xffffffffu, dl, 2 * g);
+    rows.d_hi = __shfl_sync(0xffffffffu, dl, 2 * g + 16);
+    rows.l_lo = row_lse[slot * kRows + r_lo];
+    rows.l_hi = row_lse[slot * kRows + r_lo + 8];
+    rows.id_lo = row_seg[slot * kRows + r_lo];
+    rows.id_hi = row_seg[slot * kRows + r_lo + 8];
+
+    float dq[32], sc[32], dp[32];
+    uint32_t pa[16];
+#pragma unroll
+    for (int i = 0; i < 32; ++i) dq[i] = 0.f;
+    for (int it = 0; it < tl.count; ++it) {
+      const int s = (gi + it) % kStages;
+      mbar_wait(bar_f(s), ((gi + it) / kStages) & 1);
+      wgmma_fence();
+      issue_qk(sc, q_tile, s_k + s * kTileBytes);
+      issue_qk(dp, do_tile, s_v + s * kTileBytes);
+      wgmma_wait<0>();
+      fence_regs(sc);
+      fence_regs(dp);
+      form_p(sc, key_seg + s * kRows, tl[it] * kRows, N, t, sl2, rows);
+      form_ds(sc, dp, rows);
+      pack_frags(pa, sc);
+      wgmma_fence();
+      issue_pv(dq, pa, s_k + s * kTileBytes);
+      wgmma_wait<0>();
+      fence_regs(dq);
+      fence_regs(pa);
+      // every product that read this stage's K and V has completed
+      mbar_arrive(bar_e(s));
+    }
+    gi += tl.count;
+    // every read of this slot's Q and dO has completed
+    mbar_arrive(bar_qe(slot));
+
+    const int n_lo = q0 + r_lo, n_hi = n_lo + 8;
+    uint16_t* out = static_cast<uint16_t*>(a.dq) + static_cast<long long>(item.b) * N * HD +
+                    item.h * kHd;
+#pragma unroll
+    for (int c = 0; c < 8; ++c) {
+      const int col = 8 * c + 2 * t;
+      if (n_lo < N)
+        *reinterpret_cast<uint32_t*>(out + static_cast<long long>(n_lo) * HD + col) =
+            pack_bf16(dq[4 * c] * a.scale, dq[4 * c + 1] * a.scale);
+      if (n_hi < N)
+        *reinterpret_cast<uint32_t*>(out + static_cast<long long>(n_hi) * HD + col) =
+            pack_bf16(dq[4 * c + 2] * a.scale, dq[4 * c + 3] * a.scale);
+    }
+  }
+}
+
+cudaError_t launch(const Args& a, cudaStream_t st) {
+  CUtensorMap mq, mk, mv, mo, md;
+  if (!make_map(&mq, a.q, a.B, a.N, a.H, a.q_sb, a.q_sn, a.q_sh) ||
+      !make_map(&mk, a.k, a.B, a.N, a.H, a.k_sb, a.k_sn, a.k_sh) ||
+      !make_map(&mv, a.v, a.B, a.N, a.H, a.v_sb, a.v_sn, a.v_sh) ||
+      !make_map(&mo, a.o, a.B, a.N, a.H, a.o_sb, a.o_sn, a.o_sh) ||
+      !make_map(&md, a.dout, a.B, a.N, a.H, a.d_sb, a.d_sn, a.d_sh))
+    return cudaErrorInvalidValue;
+  static int ctas_per_sm = 0;
+  const long long items = static_cast<long long>((a.N + kRows - 1) / kRows) * a.H * a.B;
+  int grid = 0;
+  const cudaError_t err =
+      persistent_grid(flash_bwd_dq_wgmma, kThreads, kSmemBytes, items, ctas_per_sm, grid);
+  if (err != cudaSuccess) return err;
+  flash_bwd_dq_wgmma<<<grid, kThreads, kSmemBytes, st>>>(mq, mk, mv, mo, md, a);
+  return cudaGetLastError();
+}
+
+}  // namespace wg
 
 // ---------------------------------------------------------------- fp32 path
 
@@ -354,23 +687,31 @@ extern "C" {
 
 // Launches the dQ backward on `stream` and returns cudaGetLastError() (0
 // when the launch was accepted). dtype: 0 = fp32, 1 = bf16. D must be 64 or
-// 128. Writes dq [B, N, H, D] and delta [B, H, N].
+// 128. Writes dq [B, N, H, D] and delta [B, H, N]. With segment ids, the
+// bf16 kernels take `tiles` [B, nT, nT] and `counts` [B, nT] int32, K1's
+// tile schedule for 64-row q tiles and 64-key tiles (nT = ceil(N / 64)),
+// and walk row qt of it for q tile qt; null tiles and counts walk every key
+// tile (always so for fp32).
 int dinov3_flash_bwd_dq(const void* q, const void* k, const void* v, const void* o,
-                        const void* dout, const int* seg, const float* lse, float* delta,
-                        void* dq, int B, int N, int H, int D, int dtype,
+                        const void* dout, const int* seg, const int* tiles, const int* counts,
+                        const float* lse, float* delta, void* dq, int B, int N, int H, int D,
+                        int dtype,
                         long long q_sb, long long q_sn, long long q_sh,
                         long long k_sb, long long k_sn, long long k_sh,
                         long long v_sb, long long v_sn, long long v_sh,
                         long long o_sb, long long o_sn, long long o_sh,
                         long long d_sb, long long d_sn, long long d_sh,
                         float scale, void* stream) {
-  Args a{q, k, v, o, dout, seg, lse, delta, dq, B, N, H,
+  if ((tiles != nullptr) != (counts != nullptr) ||
+      (tiles != nullptr && (seg == nullptr || dtype != 1)))
+    return static_cast<int>(cudaErrorInvalidValue);
+  Args a{q, k, v, o, dout, seg, tiles, counts, lse, delta, dq, B, N, H,
          q_sb, q_sn, q_sh, k_sb, k_sn, k_sh, v_sb, v_sn, v_sh,
          o_sb, o_sn, o_sh, d_sb, d_sn, d_sh, scale};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const dim3 grid((N + 63) / 64, H, B);
   if (dtype == 1 && D == 64) {
-    flash_bwd_dq_bf16<64><<<grid, 128, 0, st>>>(a);
+    return static_cast<int>(wg::launch(a, st));
   } else if (dtype == 1 && D == 128) {
     flash_bwd_dq_bf16<128><<<grid, 128, 0, st>>>(a);
   } else if (dtype == 0 && D == 64) {

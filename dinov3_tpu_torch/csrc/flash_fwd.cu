@@ -272,13 +272,6 @@ __device__ __forceinline__ void softmax_tile(float (&sc)[32], Rows& r, float& al
   r.l_hi = r.l_hi * alpha_hi + rs_hi;
 }
 
-// P in bf16 as the A fragments of O += P V: the S accumulators of key
-// columns [16kk, 16kk + 16) are exactly the A fragment of k-step kk.
-__device__ __forceinline__ void pack_p(uint32_t (&pa)[16], const float (&sc)[32]) {
-#pragma unroll
-  for (int i = 0; i < 16; ++i) pa[i] = pack_bf16(sc[2 * i], sc[2 * i + 1]);
-}
-
 __global__ void __launch_bounds__(kThreads)
     flash_fwd_wgmma(const __grid_constant__ CUtensorMap map_q,
                     const __grid_constant__ CUtensorMap map_k,
@@ -368,7 +361,7 @@ __global__ void __launch_bounds__(kThreads)
     fence_regs(sc);
     float alpha_lo, alpha_hi;
     softmax_tile(sc, r, alpha_lo, alpha_hi, sk, has_seg, sq_lo, sq_hi, k0, t, N, sl2);
-    pack_p(pa, sc);
+    pack_frags(pa, sc);
   }
   for (int it = 0; it < tl.count; ++it) {
     const int s = it % kStages;
@@ -403,7 +396,7 @@ __global__ void __launch_bounds__(kThreads)
         o[4 * c + 2] *= alpha_hi;
         o[4 * c + 3] *= alpha_hi;
       }
-      pack_p(pa, sc);
+      pack_frags(pa, sc);
     }
   }
 

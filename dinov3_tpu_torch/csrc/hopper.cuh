@@ -1,5 +1,6 @@
 // Hopper (sm_90a) building blocks shared by the TMA + wgmma bodies of the
-// flash-attention kernels (csrc/flash_fwd.cu, csrc/flash_bwd_dkv.cu).
+// flash-attention kernels (csrc/flash_fwd.cu, csrc/flash_bwd_dq.cu,
+// csrc/flash_bwd_dkv.cu).
 //
 // - mbarriers: init, arrive (optionally with an expected transaction byte
 //   count) and a parity wait;
@@ -13,8 +14,12 @@
 //   over their 64 columns: K-major, +32 bytes a k-step in the swizzled
 //   128-byte rows) and `issue_pv` (D += A B, A from registers in the
 //   accumulator layout, B's 64 rows contracted: MN-major in the
-//   transposed-B mode, +2 KB a k-step);
-// - the register fences an asynchronous wgmma needs around its wait.
+//   transposed-B mode, +2 KB a k-step), and `pack_frags`, which rounds an
+//   accumulator to that A layout;
+// - the register fences an asynchronous wgmma needs around its wait;
+// - for the backward kernels: a row of K1's 64 x 64 tile schedule as a
+//   list of tiles (`schedule_row`), and the work items of a persistent grid
+//   (`Items`, sized by `persistent_grid`).
 //
 // In the wgmma layouts warp w of the warpgroup owns rows [16w, 16w + 16) of
 // a 64-row result; lane (g, t) = (lane / 4, lane % 4) holds rows g and g + 8
@@ -23,6 +28,7 @@
 #pragma once
 
 #include <cuda.h>  // CUtensorMap and its enums only; libcuda is not linked
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -176,12 +182,86 @@ __device__ __forceinline__ void issue_pv(float (&o)[32], const uint32_t (&pa)[16
   wgmma_commit();
 }
 
+// fp32 accumulators of a 64 x 64 result, rounded to bf16, as the A
+// fragments of an `issue_pv` product contracting over the result's columns:
+// columns [16kk, 16kk + 16) of the accumulator are exactly the A fragment
+// of k-step kk. The forward's P; the backward's P^T, dS^T and dS.
+__device__ __forceinline__ void pack_frags(uint32_t (&a)[16], const float (&x)[32]) {
+#pragma unroll
+  for (int i = 0; i < 16; ++i) {
+    const __nv_bfloat162 v = __floats2bfloat162_rn(x[2 * i], x[2 * i + 1]);
+    a[i] = *reinterpret_cast<const uint32_t*>(&v);
+  }
+}
+
 // 2^x by the special-function unit alone (denormal results flush to 0,
 // which the softmax cannot tell from 0); exp2f adds a denormal path.
 __device__ __forceinline__ float fast_exp2(float x) {
   float y;
   asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
   return y;
+}
+
+// The tiles a backward CTA walks for tile i of batch row b: row i of K1's
+// 64 x 64 schedule (tiles [B, nt, nt], counts [B, nt]), or all nt tiles
+// without one.
+struct TileList {
+  const int* list;
+  int count;
+  __device__ __forceinline__ int operator[](int i) const { return list ? list[i] : i; }
+};
+
+__device__ __forceinline__ TileList schedule_row(const int* tiles, const int* counts, int nt,
+                                                 int i, int b) {
+  if (!tiles) return TileList{nullptr, nt};
+  const long long row = static_cast<long long>(b) * nt + i;
+  return TileList{tiles + row * nt, counts[row]};
+}
+
+// One work item of a persistent grid: 64-row tile `tile` of head h of batch
+// row b.
+struct Item {
+  int tile, h, b;
+};
+
+// A CTA's items in order: blockIdx.x, blockIdx.x + gridDim.x, ... of all
+// nt * H * B, the tile index fastest, so that the tiles of one (b, h) run
+// at about the same time and share the other operand's tiles in L2.
+struct Items {
+  int next, total, nt, H;
+  __device__ __forceinline__ Items(int n_tiles, int heads, int batch)
+      : next(blockIdx.x), total(n_tiles * heads * batch), nt(n_tiles), H(heads) {}
+  __device__ __forceinline__ bool get(Item& it) {
+    if (next >= total) return false;
+    it = Item{next % nt, (next / nt) % H, next / (nt * H)};
+    next += gridDim.x;
+    return true;
+  }
+};
+
+// The grid of a persistent kernel over `items` work items: as many CTAs as
+// fit on the SMs, at most one an item. The first call (ctas_per_sm == 0,
+// the caller's static) sets the kernel's dynamic shared memory and reads
+// its occupancy.
+template <typename Kernel>
+inline cudaError_t persistent_grid(Kernel kernel, int threads, int smem_bytes, long long items,
+                                   int& ctas_per_sm, int& grid) {
+  if (!ctas_per_sm) {
+    cudaError_t err =
+        cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem_bytes);
+    if (err == cudaSuccess)
+      err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&ctas_per_sm, kernel, threads,
+                                                          smem_bytes);
+    if (err != cudaSuccess) return err;
+    if (ctas_per_sm < 1) return cudaErrorInvalidConfiguration;
+  }
+  int device = 0, sms = 0;
+  cudaError_t err = cudaGetDevice(&device);
+  if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
+  if (err != cudaSuccess) return err;
+  const long long cap = static_cast<long long>(sms) * ctas_per_sm;
+  grid = static_cast<int>(items < cap ? items : cap);
+  return cudaSuccess;
 }
 
 // cuTensorMapEncodeTiled, looked up at run time through the CUDA runtime,

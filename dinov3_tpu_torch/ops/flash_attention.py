@@ -23,9 +23,10 @@ min and max id >= 0 and whether it holds a negative id, and walks only
 those (a skipped tile's logits are all masked, so skipping changes no
 result). ``flash_tile_schedule`` launches that schedule kernel alone;
 ``flash_tile_schedule_plain`` is its plain twin. The backward keeps the
-forward's schedule: with 64-row q tiles and 64-key tiles (bf16) it is
-symmetric, so row j of it is also the list of q tiles that can meet key
-tile j, and the bf16 dK/dV kernel K3 walks only those.
+forward's schedule (64-row q tiles and 64-key tiles in bf16): the bf16 dQ
+kernel K2 walks row i of it for q tile i, and, the schedule being
+symmetric for equal tile sizes, the bf16 dK/dV kernel K3 walks row j of it
+as the list of q tiles that can meet key tile j.
 """
 
 from __future__ import annotations
@@ -47,7 +48,7 @@ FLASH_TILE_SCHEDULE = CudaKernel(
     built_by=FLASH_FWD)
 FLASH_BWD_DQ = CudaKernel(
     "flash_bwd_dq", "flash_bwd_dq.cu",
-    [_P] * 9 + [_I] * 5 + [_L] * 15 + [ctypes.c_float, _P])
+    [_P] * 11 + [_I] * 5 + [_L] * 15 + [ctypes.c_float, _P])
 FLASH_BWD_DKV = CudaKernel(
     "flash_bwd_dkv", "flash_bwd_dkv.cu",
     [_P] * 11 + [_I] * 5 + [_L] * 12 + [ctypes.c_float, _P])
@@ -248,25 +249,6 @@ def _check_bwd(q, lse, **like_q):
                          f"got {lse.dtype} {tuple(lse.shape)}")
 
 
-def flash_bwd_dq(q, k, v, o, lse, do, seg=None):
-    """K2 on CUDA tensors: (dQ [B, N, h, d] contiguous, Delta [B, h, N]
-    fp32), Delta = sum_d dO * O for K3."""
-    _check(q, k, v, seg)
-    _check_bwd(q, lse, o=o, do=do)
-    B, N, H, D = q.shape
-    dq = torch.empty((B, N, H, D), dtype=q.dtype, device=q.device)
-    delta = torch.empty((B, H, N), dtype=torch.float32, device=q.device)
-    if dq.numel() == 0:
-        return dq, delta
-    FLASH_BWD_DQ.launch(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), do.data_ptr(),
-        _ptr(seg), lse.data_ptr(), delta.data_ptr(), dq.data_ptr(),
-        B, N, H, D, _DTYPE_CODE[q.dtype],
-        *q.stride()[:3], *k.stride()[:3], *v.stride()[:3], *o.stride()[:3],
-        *do.stride()[:3], float(D) ** -0.5, stream_ptr(q.device))
-    return dq, delta
-
-
 def _check_schedule(schedule, seg):
     tiles, counts = schedule
     B, N = seg.shape
@@ -278,6 +260,50 @@ def _check_schedule(schedule, seg):
                 f"the schedule's {name} must be a contiguous int32 {shape} "
                 f"tensor on {seg.device} (K1's 64 x 64 schedule of seg); got "
                 f"{t.dtype} {tuple(t.shape)} on {t.device}")
+
+
+def _walked_schedule(kernel, q, seg, schedule):
+    """(tiles, counts) for a backward kernel's launch: K1's 64 x 64
+    schedule of seg where the kernel walks one (bf16 with seg), the given
+    one checked or one built here (one launch of the schedule kernel);
+    (None, None) otherwise. Raises on a schedule the kernel would not
+    read."""
+    walks = seg is not None and q.dtype == torch.bfloat16
+    if schedule is not None and not walks:
+        raise ValueError(f"{kernel} reads a schedule only for bf16 inputs "
+                         "with segment ids")
+    if not walks:
+        return None, None
+    if schedule is None:
+        schedule = flash_tile_schedule(seg, *FWD_TILES[torch.bfloat16])
+    _check_schedule(schedule, seg)
+    return schedule
+
+
+def flash_bwd_dq(q, k, v, o, lse, do, seg=None, schedule=None):
+    """K2 on CUDA tensors: (dQ [B, N, h, d] contiguous, Delta [B, h, N]
+    fp32), Delta = sum_d dO * O for K3.
+
+    With seg and bf16 inputs the kernel walks, for each q tile, only the
+    key tiles that can meet it: row i of ``schedule``, K1's (tiles, counts)
+    of this seg for 64 x 64 tiles as ``flash_fwd`` returns it (built here,
+    one more launch of the schedule kernel, when not given). fp32 walks
+    every key tile and takes no schedule."""
+    _check(q, k, v, seg)
+    _check_bwd(q, lse, o=o, do=do)
+    B, N, H, D = q.shape
+    dq = torch.empty((B, N, H, D), dtype=q.dtype, device=q.device)
+    delta = torch.empty((B, H, N), dtype=torch.float32, device=q.device)
+    if dq.numel() == 0:
+        return dq, delta
+    tiles, counts = _walked_schedule("K2", q, seg, schedule)
+    FLASH_BWD_DQ.launch(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), do.data_ptr(),
+        _ptr(seg), _ptr(tiles), _ptr(counts), lse.data_ptr(), delta.data_ptr(),
+        dq.data_ptr(), B, N, H, D, _DTYPE_CODE[q.dtype],
+        *q.stride()[:3], *k.stride()[:3], *v.stride()[:3], *o.stride()[:3],
+        *do.stride()[:3], float(D) ** -0.5, stream_ptr(q.device))
+    return dq, delta
 
 
 def flash_bwd_dkv(q, k, v, lse, delta, do, seg=None, schedule=None):
@@ -293,21 +319,12 @@ def flash_bwd_dkv(q, k, v, lse, delta, do, seg=None, schedule=None):
     if delta.shape != lse.shape or delta.dtype != torch.float32 \
             or not delta.is_contiguous() or delta.device != q.device:
         raise ValueError("delta must be a contiguous fp32 tensor like lse")
-    walks_schedule = seg is not None and q.dtype == torch.bfloat16
-    if schedule is not None and not walks_schedule:
-        raise ValueError("K3 reads a schedule only for bf16 inputs with "
-                         "segment ids")
     B, N, H, D = q.shape
     dk = torch.empty((B, N, H, D), dtype=k.dtype, device=q.device)
     dv = torch.empty((B, N, H, D), dtype=v.dtype, device=q.device)
     if dk.numel() == 0:
         return dk, dv
-    tiles = counts = None
-    if walks_schedule:
-        if schedule is None:
-            schedule = flash_tile_schedule(seg, *FWD_TILES[torch.bfloat16])
-        _check_schedule(schedule, seg)
-        tiles, counts = schedule
+    tiles, counts = _walked_schedule("K3", q, seg, schedule)
     FLASH_BWD_DKV.launch(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
         _ptr(seg), _ptr(tiles), _ptr(counts), lse.data_ptr(),
@@ -326,7 +343,7 @@ class _FlashAttention(torch.autograd.Function):
             out, lse = attention_plain(q, k, v, seg)
         else:
             out, lse, schedule = flash_fwd(q, k, v, seg)
-        # K1's schedule, kept for K3 where it reads it (bf16 with seg)
+        # K1's schedule, kept for K2 and K3 where they read it (bf16 with seg)
         tiles = counts = None
         if q.dtype == torch.bfloat16 and schedule is not None:
             tiles, counts = schedule
@@ -343,10 +360,9 @@ class _FlashAttention(torch.autograd.Function):
             dq, dk, dv = (torch.zeros_like(t) for t in (q, k, v))
         else:
             do = do.contiguous()
-            dq, delta = flash_bwd_dq(q, k, v, out, lse, do, seg)
-            dk, dv = flash_bwd_dkv(
-                q, k, v, lse, delta, do, seg,
-                None if tiles is None else (tiles, counts))
+            schedule = None if tiles is None else (tiles, counts)
+            dq, delta = flash_bwd_dq(q, k, v, out, lse, do, seg, schedule)
+            dk, dv = flash_bwd_dkv(q, k, v, lse, delta, do, seg, schedule)
         return dq, dk, dv, None
 
 

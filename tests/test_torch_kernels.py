@@ -281,25 +281,52 @@ def test_dkv_on_q_tile_lists_matches_plain(kind):
                                    atol=1e-6 * float(want.abs().max()))
 
 
+@pytest.mark.parametrize("kind", ["runs", "shuffled", "wide", "allpad"])
+def test_dq_on_key_tile_lists_matches_plain(kind):
+    """dQ summed, as K2 sums it, only over the key tiles on each q tile's
+    row of K1's 64 x 64 schedule equals the dense plain backward (fp32,
+    1e-6 relative to the gradient's scale: the same sums with masked terms
+    left out)."""
+    B, N, h, d = 3, 201, 2, 64
+    q, k, v = (torch.from_numpy(t) for t in _qkv(N + 21, B, N, h, d))
+    do = torch.from_numpy(_qkv(N + 22, B, N, h, d)[0])
+    seg = torch.from_numpy(_seg_kind(kind, N + 23, B, N))
+    o, lse = attention_plain(q, k, v, seg)
+    want_dq, _, _ = attention_bwd_plain(q, k, v, o, lse, do, seg)
+    keep = (seg[:, :, None] == seg[:, None, :]) & _visited(seg, 64, 64)  # [B, q, k]
+    logits = torch.einsum("bqhd,bkhd->bhqk", q, k) * d ** -0.5
+    p = torch.where(keep[:, None], torch.exp(logits - lse[..., None]), 0.0)
+    delta = (do * o).sum(-1).transpose(1, 2)
+    ds = p * (torch.einsum("bqhd,bkhd->bhqk", do, v) - delta[..., None])
+    dq = torch.einsum("bhqk,bkhd->bqhd", ds, k) * d ** -0.5
+    np.testing.assert_allclose(dq.numpy(), want_dq.numpy(),
+                               atol=1e-6 * float(want_dq.abs().max()))
+
+
 def test_library_name_sees_included_headers(tmp_path):
     """A kernel's library is named by the hash of its source, of every
     header it includes with quotes and of the flags: editing the shared
-    Hopper header renames the libraries of the sources that include it, so
-    no stale build is loaded, and leaves the others alone."""
+    Hopper header renames the libraries of the sources that include it
+    (K1, K2 and K3), so no stale build is loaded, and leaves the others
+    alone."""
     csrc = REPO / "dinov3_tpu_torch" / "csrc"
-    for name in ("flash_bwd_dkv.cu", "flash_bwd_dq.cu", "hopper.cuh"):
-        shutil.copy(csrc / name, tmp_path / name)
-    dkv = CudaKernel("flash_bwd_dkv", tmp_path / "flash_bwd_dkv.cu", [])
-    dq = CudaKernel("flash_bwd_dq", tmp_path / "flash_bwd_dq.cu", [])
-    assert source_files(dkv.source) == [tmp_path / "flash_bwd_dkv.cu",
-                                        tmp_path / "hopper.cuh"]
-    before = (dkv.library, dq.library)
-    assert dkv.library == CudaKernel("flash_bwd_dkv", "flash_bwd_dkv.cu", []).library
+    names = ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv", "layernorm_bwd")
+    for name in (*names, "hopper"):
+        suffix = ".cuh" if name == "hopper" else ".cu"
+        shutil.copy(csrc / (name + suffix), tmp_path / (name + suffix))
+    kernels = [CudaKernel(name, tmp_path / f"{name}.cu", []) for name in names]
+    for kern in kernels[:3]:
+        assert source_files(kern.source) == [kern.source, tmp_path / "hopper.cuh"]
+    assert source_files(kernels[3].source) == [kernels[3].source]
+    before = [kern.library for kern in kernels]
+    assert before[2] == CudaKernel("flash_bwd_dkv", "flash_bwd_dkv.cu", []).library
     header = tmp_path / "hopper.cuh"
     header.write_bytes(header.read_bytes() + b"// edited\n")
-    assert dkv.library != before[0] and dq.library == before[1]
+    after = [kern.library for kern in kernels]
+    assert all(a != b for a, b in zip(after[:3], before[:3]))
+    assert after[3] == before[3]
     header.write_bytes((csrc / "hopper.cuh").read_bytes())
-    assert (dkv.library, dq.library) == before
+    assert [kern.library for kern in kernels] == before
 
 
 def _load_chip_smoke():
@@ -648,21 +675,30 @@ def test_cuda_wrappers_raise_instead_of_falling_back(cuda_device):
     with pytest.raises(ValueError, match="bf16 or fp32"):
         fused_layernorm(x, torch.ones(64, device=cuda_device),
                         torch.zeros(64, device=cuda_device))
-    # K3's q-tile lists: a schedule of the wrong shape, or one given to the
-    # fp32 kernel, raises before anything is launched
+    # K2's key-tile and K3's q-tile lists: a schedule of the wrong shape,
+    # dtype or device, one given without seg, or one given to the fp32
+    # kernels, raises before anything is launched
     q = torch.randn(2, 130, 2, 64, device=cuda_device, dtype=torch.bfloat16)
     seg = torch.zeros(2, 130, dtype=torch.int32, device=cuda_device)
     out, lse, (tiles, counts) = flash_fwd(q, q, q, seg)
-    _, delta = flash_bwd_dq(q, q, q, out, lse, q, seg)
-    before = FLASH_BWD_DKV.launches
+    _, delta = flash_bwd_dq(q, q, q, out, lse, q, seg, (tiles, counts))
+    before = (FLASH_BWD_DQ.launches, FLASH_BWD_DKV.launches,
+              FLASH_TILE_SCHEDULE.launches)
     for bad in ((tiles[:, :2], counts), (tiles, counts[:1]),
                 (tiles.long(), counts), (tiles.cpu(), counts)):
         with pytest.raises(ValueError, match="schedule"):
+            flash_bwd_dq(q, q, q, out, lse, q, seg, bad)
+        with pytest.raises(ValueError, match="schedule"):
             flash_bwd_dkv(q, q, q, lse, delta, q, seg, bad)
-    qf = q.float()
+    with pytest.raises(ValueError, match="schedule"):
+        flash_bwd_dq(q, q, q, out, lse, q, None, (tiles, counts))
+    qf, of = q.float(), out.float()
+    with pytest.raises(ValueError, match="schedule"):
+        flash_bwd_dq(qf, qf, qf, of, lse, qf, seg, (tiles, counts))
     with pytest.raises(ValueError, match="schedule"):
         flash_bwd_dkv(qf, qf, qf, lse, delta, qf, seg, (tiles, counts))
-    assert FLASH_BWD_DKV.launches == before
+    assert (FLASH_BWD_DQ.launches, FLASH_BWD_DKV.launches,
+            FLASH_TILE_SCHEDULE.launches) == before
 
 
 def _bwd_tol(want: np.ndarray, dtype) -> float:
@@ -701,10 +737,10 @@ def _bwd_seg(kind, B, N):
 ])
 def test_flash_bwd_kernels_match_plain(cuda_device, B, N, h, d, dtype, seg_kind,
                                        v_view):
-    """K2 and K3 through the autograd Function (K3 walking the forward's
-    tile schedule where it has one) against the plain backward on the same
-    inputs and the kernels' own O and LSE; two runs give the same bits (no
-    atomics)."""
+    """K2 and K3 through the autograd Function (both walking the forward's
+    tile schedule where they read one: the backward launches no schedule
+    kernel of its own) against the plain backward on the same inputs and
+    the kernels' own O and LSE; two runs give the same bits (no atomics)."""
     dt = getattr(torch, dtype)
     q, k, v = (torch.from_numpy(t).to(cuda_device, dt)
                for t in _qkv(N + 5, B, N, h, d))
@@ -718,12 +754,13 @@ def test_flash_bwd_kernels_match_plain(cuda_device, B, N, h, d, dtype, seg_kind,
     grads = []
     for _ in range(2):
         leaves = [t.detach().clone().requires_grad_() for t in (q, k, v)]
-        before = (FLASH_BWD_DQ.launches, FLASH_BWD_DKV.launches)
+        before = (FLASH_BWD_DQ.launches, FLASH_BWD_DKV.launches,
+                  FLASH_TILE_SCHEDULE.launches)
         out, lse = flash_attention(*leaves, seg)
         (out.float() * ct.float()).sum().backward()
         torch.cuda.synchronize()
-        assert (FLASH_BWD_DQ.launches, FLASH_BWD_DKV.launches) == \
-            (before[0] + 1, before[1] + 1)
+        assert (FLASH_BWD_DQ.launches, FLASH_BWD_DKV.launches,
+                FLASH_TILE_SCHEDULE.launches) == (before[0] + 1, before[1] + 1, before[2])
         grads.append([t.grad for t in leaves])
     for a, b in zip(*grads):
         assert torch.equal(a, b)
