@@ -16,7 +16,11 @@ with that checkout's own wrappers:
   scale: device time per call (``chip_smoke.cuda_ms``);
 - the SSL training step at ViT-L/16 full width and depth, B = 32
   (``chip_smoke.py`` phase E's configuration and seeds): a warm-up step,
-  then 5 steps, host clock around each, synchronized; median and mean.
+  then 5 steps, host clock around each, synchronized; median and mean;
+- where the checkout has the trainer CLI (``dinov3_tpu_torch/train/
+  train.py``), the same configuration through it, in a child process:
+  12 iterations of synthetic data, the last 8 timed by ``--benchmark``
+  (its steady-state ms a step, the batch made on its data thread).
 Prints one JSON line a run, then the card's name and power limit. Exits
 non-zero without a card or if a run fails.
 """
@@ -26,8 +30,10 @@ from __future__ import annotations
 import inspect
 import json
 import os
+import shutil
 import subprocess
 import sys
+import tempfile
 import time
 
 STEPS = 5
@@ -90,10 +96,38 @@ def one_run(tree: str) -> dict:
         times.append((time.perf_counter() - t0) * 1e3)
         if not np.isfinite(m["total_loss"]):
             raise RuntimeError(f"{tree}: non-finite loss {m}")
-    return {"tree": tree, "k2_ms": k2_ms, "k3_ms": k3_ms, "k5_ms": k5_ms,
-            "step_median_ms": float(np.median(times)),
-            "step_mean_ms": float(np.mean(times)), "steps_ms": times,
-            "card": torch.cuda.get_device_name(0)}
+    result = {"tree": tree, "k2_ms": k2_ms, "k3_ms": k3_ms, "k5_ms": k5_ms,
+              "step_median_ms": float(np.median(times)),
+              "step_mean_ms": float(np.mean(times)), "steps_ms": times,
+              "card": torch.cuda.get_device_name(0)}
+    if os.path.exists(os.path.join(tree, "dinov3_tpu_torch", "train", "train.py")):
+        del setup, state, dbatch
+        torch.cuda.empty_cache()  # the child needs the card's memory
+        result.update(cli_run(tree))
+    return result
+
+
+def cli_run(tree: str) -> dict:
+    """The trainer CLI of ``tree`` at the step's configuration, in a child
+    process: 12 iterations, the last 8 timed (``--benchmark``), one save at
+    the end into a scratch directory under the checkout's ``build/``."""
+    import chip_smoke as smoke
+
+    os.makedirs(os.path.join(tree, "build"), exist_ok=True)
+    out = tempfile.mkdtemp(prefix="ab_cli_", dir=os.path.join(tree, "build"))
+    try:
+        proc = subprocess.run(
+            [sys.executable, "-m", "dinov3_tpu_torch.train.train", "--config-file",
+             os.path.join("configs", "train", "vitl16_im1k.yaml"), "--output-dir", out,
+             "--max-iterations", "12", "--benchmark", "8", *smoke.TRAIN_OVERRIDES,
+             "checkpointing.period=100"],
+            cwd=tree, capture_output=True, text=True, timeout=600)
+    finally:
+        shutil.rmtree(out, ignore_errors=True)
+    if proc.returncode != 0:
+        raise RuntimeError(f"{tree}: trainer failed\n{proc.stdout[-3000:]}{proc.stderr[-3000:]}")
+    cli = json.loads(proc.stdout.strip().splitlines()[-1])
+    return {"cli_ms_per_step": cli["ms_per_step"], "cli_steps_ms": cli["step_ms"]}
 
 
 def main(argv: list[str]) -> int:

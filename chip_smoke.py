@@ -39,7 +39,16 @@ E. the SSL training step at ViT-L/16 full width and depth
 F. one training step of a 2-block ViT-L-width model (4096 prototypes,
    4 images, LayerScale 1) on the card and on the CPU from the same
    weights, batch and drop-path plan: loss terms, gradient norms and the
-   updated student compared.
+   updated student compared;
+G. the pretraining CLI (``python -m dinov3_tpu_torch.train.train``) at
+   ViT-L/16 full width and depth, B=32, synthetic data, each run a child
+   process with a time limit: uninterrupted to 4 iterations; to 2; then,
+   with a torn ``tmp.3/`` and an unfinalized ``3/`` planted, resumed in a
+   new process to 4, its losses compared with the uninterrupted run's
+   (``--ref-losses``) and its final teacher with that run's; before them a
+   longer ``--benchmark`` run; ``--self-check``; and 2 steps of the image-folder
+   pipeline on texture images. Each child's K1-K5 launches are checked
+   against ``STEP_LAUNCHES`` per step; the checkpoints are deleted after.
 
 Prints the kernel table as one JSON line, the card's name and power
 limit, and as its last line ``{"ok": true, "device": {...}}``. Any
@@ -55,6 +64,7 @@ import itertools
 import json
 import os
 import re
+import shutil
 import subprocess
 import sys
 import time
@@ -991,8 +1001,51 @@ def phase_e() -> tuple[dict, dict]:
           f"memory {peak:.2f} GiB; launches per step {per_step}")
     check(per_step == STEP_LAUNCHES, f"launches per step {per_step} != {STEP_LAUNCHES}")
     norm_bwd_shapes(setup, state, dbatch)
-    profile_step(setup, state, dbatch)
-    return launches, {"ms": float(np.mean(times)), "peak_gib": peak}
+    sync_points(setup, state, dbatch)
+    batch_copy_times(cfg, batch)
+    profile_step(setup, state, batch)
+    return launches, {"ms": float(np.mean(times)), "median_ms": float(np.median(times)),
+                      "peak_gib": peak}
+
+
+def sync_points(setup, state, dbatch) -> None:
+    """The calls in one step's launch (``launch_fn``, before its metrics
+    are read) that make the host wait for the card, from
+    ``torch.cuda.set_sync_debug_mode``'s warnings, by file and line."""
+    import threading
+    import traceback
+    import warnings
+    from collections import Counter
+
+    import torch
+
+    sites = Counter()
+
+    def record(message, category, filename, lineno, file=None, line=None):
+        if "synchroniz" in str(message):
+            # the innermost frame of the port: the call that synchronized
+            frames = [f for f in traceback.extract_stack()[:-1]
+                      if f.filename.startswith(os.path.join(REPO, "dinov3_tpu_torch"))]
+            if frames:
+                site = f"{os.path.relpath(frames[-1].filename, REPO)}:{frames[-1].lineno}"
+            else:  # no frame of the port: name the thread and the frames there are
+                site = f"{threading.current_thread().name}: " + " <- ".join(
+                    f"{os.path.basename(f.filename)}:{f.lineno} {f.name}"
+                    for f in reversed(traceback.extract_stack()[-5:-1]))
+            sites[site] += 1
+
+    torch.cuda.synchronize()
+    with warnings.catch_warnings():
+        warnings.simplefilter("always")
+        warnings.showwarning = record
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            _, pending = setup.launch_fn(state, dbatch, setup.scalars(state.step))
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+    pending.read()
+    print(f"[E] synchronizing calls in one step launch: {sum(sites.values())}"
+          + "".join(f"; {n} x {site}" for site, n in sites.most_common(12)))
 
 
 def norm_bwd_shapes(setup, state, dbatch) -> None:
@@ -1019,13 +1072,76 @@ def norm_bwd_shapes(setup, state, dbatch) -> None:
         f"{n} x [{r}, {d}]" for (r, d), n in sorted(seen.items(), key=lambda kv: -kv[1])))
 
 
-def profile_step(setup, state, dbatch) -> None:
-    """Device time by kernel class over one training step, from
-    torch.profiler device events (the tracer warmed up first); the wall
-    time is that of the recorded step, tracer included."""
+def put_pageable(batch: dict) -> dict:
+    """The host batch copied to the card from pageable memory, without
+    the pinning ``put_batch`` does first."""
+    import torch
+
+    return {k: torch.from_numpy(np.ascontiguousarray(v)).to("cuda", non_blocking=True)
+            for k, v in batch.items()}
+
+
+def batch_copy_times(cfg, host_batch) -> None:
+    """The host time to make one synthetic batch, and the training batch's
+    host-to-device copy from pageable memory (the put call waits for it) and through ``put_batch`` from pinned memory
+    (the trainer pins on its data thread, ``pin_batch``): the host time of
+    the pin and of the put call, and the copy's time on the card's clock
+    from CUDA events around the put (median of 5 after a warm-up, the card
+    idle before each)."""
+    import torch
+
+    from dinov3_tpu_torch.train import put_batch
+    from dinov3_tpu_torch.train.train import pin_batch
+
+    from dinov3_tpu_torch.data import make_synthetic_batch
+
+    made = []
+    for i in range(3):  # the host work the trainer's data thread does a step
+        t0 = time.perf_counter()
+        make_synthetic_batch(cfg, TRAIN_B, seed=(0, 0, i))
+        made.append((time.perf_counter() - t0) * 1e3)
+    print(f"[E] one synthetic batch of {TRAIN_B} images made on the host in "
+          f"{np.median(made):.1f} ms (median of 3)")
+    nbytes = sum(v.nbytes for v in host_batch.values())
+    for label in ("pageable", "pinned"):
+        pin, host, dev = [], [], []
+        for _ in range(6):
+            src = host_batch
+            if label == "pinned":
+                t0 = time.perf_counter()
+                src = pin_batch(host_batch)
+                pin.append((time.perf_counter() - t0) * 1e3)
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            torch.cuda.synchronize()
+            start.record()
+            t0 = time.perf_counter()
+            if label == "pinned":
+                put_batch(src, "cuda")
+            else:
+                put_pageable(src)
+            host.append((time.perf_counter() - t0) * 1e3)
+            end.record()
+            torch.cuda.synchronize()
+            dev.append(start.elapsed_time(end))
+        copy_ms = float(np.median(dev[1:]))
+        print(f"[E] batch copy ({nbytes} bytes) from {label} memory: the put call "
+              f"holds the host {np.median(host[1:]):.2f} ms"
+              + (f" (pinning first: {np.median(pin[1:]):.2f} ms)" if pin else "")
+              + f"; the copy takes {copy_ms:.2f} ms on the card's clock "
+              f"({nbytes / copy_ms / 1e6:.1f} GB/s)")
+
+
+def profile_step(setup, state, host_batch) -> None:
+    """Device time by kernel class over one training step whose batch is
+    put on the card (``put_batch``, pinned) inside the recorded window,
+    from torch.profiler device events (the tracer warmed up first); the
+    wall time is that of the recorded step, tracer included."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
+
+    from dinov3_tpu_torch.train import put_batch
 
     activities = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
     with profile(activities=activities):
@@ -1033,6 +1149,7 @@ def profile_step(setup, state, dbatch) -> None:
     torch.cuda.synchronize()
     with profile(activities=activities) as prof:
         t0 = time.perf_counter()
+        dbatch = put_batch(host_batch, "cuda")
         setup.step_fn(state, dbatch, setup.scalars(state.step))
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
@@ -1040,6 +1157,9 @@ def profile_step(setup, state, dbatch) -> None:
     if not events:
         print("[E] profile: no device events recorded (device time not measured)")
         return
+    h2d = [e.time_range.elapsed_us() / 1e3 for e in events if "htod" in e.name.lower()]
+    print(f"[E] profiled step: host-to-device memcpy {sum(h2d):.3f} ms in {len(h2d)} "
+          f"copies ({sorted({e.name for e in events if 'htod' in e.name.lower()})})")
     classes = (("K1 flash_fwd", ("flash_fwd", "flash_tile_schedule")),
                ("K2 flash_bwd_dq", ("flash_bwd_dq",)),
                ("K3 flash_bwd_dkv", ("flash_bwd_dkv",)),
@@ -1063,7 +1183,7 @@ def profile_step(setup, state, dbatch) -> None:
         n, tt = by_name.get(e.name, (0, 0.0))
         by_name[e.name] = (n + 1, tt + t)
     busy = sum(buckets.values())
-    print(f"[E] profile of one step: wall {wall_ms:.2f} ms, device busy {busy:.2f} ms, "
+    print(f"[E] profile of one step (batch put inside it): wall {wall_ms:.2f} ms, device busy {busy:.2f} ms, "
           f"idle share {max(0.0, 1 - busy / wall_ms):.3f}; " + ", ".join(
               f"{k} {v:.2f} ms" for k, v in buckets.items()))
     for name, (n, t) in sorted(by_name.items(), key=lambda r: -r[1][1])[:12]:
@@ -1144,6 +1264,182 @@ def phase_f() -> None:
     check(close >= 0.9 * total, "[F] updated students disagree")
 
 
+# ---------------------------------------------------------------- phase G
+
+G_DIR = os.path.join(REPO, "build", "phase_g")
+CLI_CONFIG = os.path.join("configs", "train", "vitl16_im1k.yaml")
+# the trainer's command of the ViT-L/16 slice: B=32, materialized targets,
+# synthetic data, a save every 2 iterations
+CLI_OVERRIDES = TRAIN_OVERRIDES + ["checkpointing.period=2"]
+
+
+def run_cli(name: str, args: list, overrides=(), timeout: int = 420) -> dict:
+    """One run of ``python -m dinov3_tpu_torch.train.train`` as a child
+    process with a time limit; its output goes to ``build/phase_g/<name>.log``
+    and its last line is its result. Raises on a non-zero exit."""
+    cmd = [sys.executable, "-m", "dinov3_tpu_torch.train.train",
+           "--config-file", CLI_CONFIG, *args, *CLI_OVERRIDES, *overrides]
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, cwd=REPO, capture_output=True, text=True,
+                          timeout=timeout)
+    wall = time.perf_counter() - t0
+    with open(os.path.join(G_DIR, f"{name}.log"), "w") as f:
+        f.write(proc.stdout + proc.stderr)
+    if proc.returncode != 0:
+        tail = (proc.stdout + proc.stderr).splitlines()[-40:]
+        raise SmokeFailure(f"[G] {name}: exit {proc.returncode}\n" + "\n".join(tail))
+    result = json.loads(proc.stdout.strip().splitlines()[-1])
+    result["wall_s"] = wall
+    print(f"[G] {name}: {wall:.1f} s wall; start {result.get('start_iteration')}, "
+          f"iterations {result.get('iterations')}, launches {result['launches']}"
+          + (f"; --benchmark {result['ms_per_step']:.2f} ms a step, "
+             f"{result['img_per_sec']:.2f} img/s (steps "
+             + ", ".join(f"{t:.1f}" for t in result["step_ms"]) + " ms)"
+             if "ms_per_step" in result else "")
+          + "".join(f"; save step {v['step']}: {v['bytes']} bytes in {v['seconds']:.2f} s"
+                    for v in result.get("saves", []))
+          + (f"; restore {result['restore_s']:.2f} s" if "restore_s" in result else "")
+          + (f"; peak {result['peak_memory_gib']:.2f} GiB" if "peak_memory_gib" in result else "")
+          + (f"; gc {result['gc']}" if "gc" in result else ""))
+    return result
+
+
+def check_launches(name: str, result: dict, steps: int) -> None:
+    want = {k: v * steps for k, v in STEP_LAUNCHES.items()}
+    check(result["launches"] == want,
+          f"[G] {name}: launches {result['launches']} != {want} ({steps} steps)")
+
+
+def read_losses(path: str) -> dict:
+    with open(path) as f:
+        return {r["iteration"]: r for r in map(json.loads, f)}
+
+
+def teacher_of(run_dir: str, step: int) -> dict:
+    import torch
+
+    payload = torch.load(os.path.join(run_dir, "ckpt", str(step), "state.pt"),
+                         map_location="cpu", weights_only=True, mmap=True)
+    return payload["teacher"]
+
+
+def plant_torn_saves(ckpt_dir: str) -> None:
+    """A save cut before its rename (``tmp.3/`` holding a partial payload)
+    and one cut before its marker (``3/`` with a payload, no FINALIZED)."""
+    for d in ("tmp.3", "3"):
+        os.makedirs(os.path.join(ckpt_dir, d))
+        with open(os.path.join(ckpt_dir, d, "state.pt"), "wb") as f:
+            f.write(b"PK\x03\x04 torn payload")
+
+
+def phase_g(step: dict) -> dict:
+    """The trainer CLI at ViT-L/16, B=32 on the card (module docstring)."""
+    import torch
+
+    from dinov3_tpu_torch.configs import load_config
+
+    gc.collect()
+    torch.cuda.empty_cache()  # the children need the card's memory
+    shutil.rmtree(G_DIR, ignore_errors=True)
+    os.makedirs(G_DIR)
+    try:
+        return _phase_g(step, load_config(os.path.join(REPO, CLI_CONFIG),
+                                          TRAIN_OVERRIDES, n_devices=1))
+    finally:
+        shutil.rmtree(G_DIR, ignore_errors=True)
+
+
+def _phase_g(step: dict, cfg) -> dict:
+    from dinov3_tpu_torch.train.schedules import build_schedules
+
+    # first, before the runs that write checkpoints: 12 iterations, the
+    # last 8 timed, one save at the end (after the last mark)
+    bench = run_cli("benchmark", ["--output-dir", os.path.join(G_DIR, "b"),
+                                  "--max-iterations", "12", "--benchmark", "8"],
+                    ["checkpointing.period=100"])
+    check_launches("benchmark", bench, 12)
+    shutil.rmtree(os.path.join(G_DIR, "b"))
+    a_dir, r_dir = os.path.join(G_DIR, "a"), os.path.join(G_DIR, "r")
+    a_losses = os.path.join(G_DIR, "a.jsonl")
+    a = run_cli("uninterrupted", ["--output-dir", a_dir, "--max-iterations", "4",
+                                  "--benchmark", "2", "--record-losses", a_losses])
+    check_launches("uninterrupted", a, 4)
+    check([s["step"] for s in a["saves"]] == [2, 4], f"[G] saves {a['saves']}")
+    losses = read_losses(a_losses)
+    check(sorted(losses) == [0, 1, 2, 3] and all(
+        np.isfinite(v) for r in losses.values() for k, v in r.items() if k != "iteration"),
+        f"[G] uninterrupted losses {losses}")
+    r1 = run_cli("to 2", ["--output-dir", r_dir, "--max-iterations", "2"])
+    check_launches("to 2", r1, 2)
+    plant_torn_saves(os.path.join(r_dir, "ckpt"))
+    r_losses = os.path.join(G_DIR, "r.jsonl")
+    r2 = run_cli("resumed to 4", ["--output-dir", r_dir, "--max-iterations", "4",
+                                  "--record-losses", r_losses, "--ref-losses", a_losses])
+    check(r2["start_iteration"] == 2 and r2["iterations"] == 4,
+          f"[G] resumed at {r2['start_iteration']}, not at 2 past the torn saves")
+    check_launches("resumed to 4", r2, 2)
+    # resumed losses against the uninterrupted run's: the CLI's own
+    # comparator, |err| <= 1e-4 + 1e-3 |recorded| (index_add on the card
+    # sums with atomics, so the runs need not be bitwise equal)
+    resumed = read_losses(r_losses)
+    diffs = [abs(resumed[i][k] - losses[i][k]) for i in (2, 3) for k in resumed[i]
+             if k != "iteration"]
+    print(f"[G] resumed vs uninterrupted losses at iterations 2-3: largest "
+          f"|difference| {max(diffs):.3e}, bitwise {max(diffs) == 0.0}; "
+          f"{r2['loss_comparison']}")
+    check(sorted(resumed) == [2, 3] and r2["loss_divergences"] == 0,
+          f"[G] resumed losses diverge: {r2['loss_comparison']}")
+    # the final teacher: from the same start the EMA moves each entry by
+    # (1 - m) of the student's update; an Adam update whose gradient is at
+    # noise level can go either way (|update| <= 2 lr in these first
+    # steps), so the runs may differ by sum (1 - m) 4 lr, plus 1e-5 of
+    # each tensor's largest magnitude
+    sched = build_schedules(cfg)
+    drift = sum((1 - float(sched.momentum[i])) * 4 * float(sched.lr[i]) for i in range(4))
+    ta, tr = teacher_of(a_dir, 4), teacher_of(r_dir, 4)
+    worst, worst_ratio, same = 0.0, 0.0, True
+    for n, w in ta.items():
+        err = (tr[n] - w).abs().max().item()
+        tol = drift + 1e-5 * max(w.abs().max().item(), 1e-3)
+        same = same and err == 0.0
+        worst, worst_ratio = max(worst, err), max(worst_ratio, err / tol)
+        check(err <= tol, f"[G] teacher {n}: resumed vs uninterrupted {err:.3e} > {tol:.3e}")
+    print(f"[G] final teacher, resumed vs uninterrupted: largest |difference| "
+          f"{worst:.3e} ({worst_ratio:.3f} of its tolerance), bitwise {same}")
+    del ta, tr
+    shutil.rmtree(a_dir)
+    shutil.rmtree(r_dir)
+
+    sc = run_cli("self-check", ["--output-dir", os.path.join(G_DIR, "s"), "--self-check"])
+    failed = [k for k, v in sc.items() if k.startswith("check/") and not v]
+    print(f"[G] self-check at full width: {sum(k.startswith('check/') for k in sc)} "
+          f"checks, failures {failed}")
+    check(sc["self_check_failures"] == 0 and not failed, f"[G] self-check failed: {failed}")
+    check_launches("self-check", sc, 2)
+
+    # the image-folder pipeline: 2 steps on texture images (PIL on the host)
+    from dinov3_tpu_torch.data.textures import materialize_textures
+
+    t0 = time.perf_counter()
+    train_dir, _ = materialize_textures(os.path.join(G_DIR, "textures"),
+                                        n_train_per_class=8, n_val_per_class=0,
+                                        px=256, seed=0)
+    print(f"[G] 96 texture images of 256 px written in {time.perf_counter() - t0:.1f} s")
+    folder = run_cli("folder", ["--output-dir", os.path.join(G_DIR, "f"),
+                                "--max-iterations", "2"],
+                     ["data.backend=folder", f"train.dataset_path=Folder:root={train_dir}",
+                      "train.num_workers=8"])
+    check_launches("folder", folder, 2)
+    check(np.isfinite(folder["final_loss"]), f"[G] folder run loss {folder['final_loss']}")
+
+    print(f"[G] CLI --benchmark: {a['img_per_sec']:.2f} img/s ({a['ms_per_step']:.1f} ms a "
+          f"step over 2 steps), {bench['img_per_sec']:.2f} img/s ({bench['ms_per_step']:.1f} "
+          f"ms over 8 steps); phase E step_fn: {TRAIN_B / step['median_ms'] * 1e3:.2f} img/s "
+          f"at its median {step['median_ms']:.1f} ms; CLI / phase E "
+          f"{bench['ms_per_step'] / step['median_ms']:.4f}")
+    return {"uninterrupted": a, "benchmark": bench, "resumed": r2}
+
+
 # ---------------------------------------------------------------- main
 
 def main() -> int:
@@ -1168,6 +1464,7 @@ def main() -> int:
     rows.update(phase_b_bwd())
     train_launches, step = phase_e()
     phase_f()
+    cli = phase_g(step)["uninterrupted"]
     print(f"[smoke] all phases passed in {time.perf_counter() - t_start:.1f} s")
 
     table = []
@@ -1187,11 +1484,13 @@ def main() -> int:
         table.append({
             "name": name, "route": "cuda", "source": source,
             "replaces": replaces,
-            # the counted runs of both paths: 3 serve packs (phase C) and
-            # 5 training steps (phase E)
-            "launches": serve_launches[key] + train_launches[key],
+            # the counted runs of the three paths: 3 serve packs (phase C),
+            # 5 training steps (phase E) and the trainer CLI's uninterrupted
+            # 4-iteration run (phase G, counted in its own process)
+            "launches": serve_launches[key] + train_launches[key] + cli["launches"][key],
             "launches_per_serve_pack": serve_launches[key] / packs,
             "launches_per_train_step": train_launches[key] / 5,
+            "launches_per_cli_iteration": cli["launches"][key] / 4,
             "max_abs_err": r["max_abs_err"], "ms": r["ms"],
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
             "bound_by": r["bound_by"], "library_ms": r["library_ms"],

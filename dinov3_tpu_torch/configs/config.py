@@ -264,6 +264,23 @@ def check_train_slice(cfg: ConfigNode) -> None:
             raise NotImplementedError(msg)
 
 
+def setup_job(cfg: ConfigNode) -> None:
+    """Create the output directory, dump the resolved config there as
+    ``config.yaml`` and seed the process's ``random`` and ``np.random``
+    from ``train.seed`` (process-wide: an entry point's ``main`` calls it)."""
+    import random
+
+    import numpy as np
+
+    out = Path(cfg.train.output_dir)
+    out.mkdir(parents=True, exist_ok=True)
+    dump = {k: v for k, v in cfg.to_dict().items() if not k.startswith("_")}
+    with open(out / "config.yaml", "w") as f:
+        yaml.safe_dump(dump, f, sort_keys=False)
+    random.seed(cfg.train.seed)
+    np.random.seed(cfg.train.seed)
+
+
 def continuous_packing_wished(cfg: ConfigNode) -> bool:
     """``serve.continuous_packing``: auto/true (default) = the packed
     engine; false = the per-shape oracle engine."""

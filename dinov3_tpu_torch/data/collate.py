@@ -1,0 +1,87 @@
+"""Batch assembly (``dinov3_tpu/data/collate.py``): multi-crop stacking and
+the iBOT masks packed into fixed-capacity per-image buffers (mask_indices
+/ mask_weights / mask_valid). Crops are already normalized float32 NHWC.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+
+from dinov3_tpu_torch.data.masking import sample_ibot_masks
+
+
+def mask_capacity(n_tokens: int, mask_ratio_max: float) -> int:
+    """Fixed mask-index buffer size per image."""
+    return max(1, int(n_tokens * mask_ratio_max))
+
+
+def collate_crops(
+    samples: list[dict],
+    rng: np.random.Generator,
+    *,
+    patch_size: int,
+    global_crops_size: int,
+    mask_ratio_min_max: tuple[float, float] = (0.1, 0.5),
+    mask_probability: float = 0.5,
+    mask_random_circular_shift: bool = False,
+    dtype=np.float32,
+) -> dict:
+    """samples: augmentation outputs (dicts of lists of HWC arrays).
+
+    Returns the train-step batch contract (``train/ssl_meta_arch.py``).
+    Stacking is crop-major: [crop0 of every image, crop1 of every image,
+    ...].
+    """
+    B = len(samples)
+    n_g = len(samples[0]["global_crops"])
+    n_l = len(samples[0]["local_crops"])
+
+    def stack(key, n):
+        items = [samples[b][key][i] for i in range(n) for b in range(B)]
+        return np.stack(items).astype(dtype)
+
+    batch = {"global_crops": stack("global_crops", n_g)}
+    if n_l:
+        batch["local_crops"] = stack("local_crops", n_l)
+    if "global_crops_teacher" in samples[0] and (
+        samples[0]["global_crops_teacher"] is not samples[0]["global_crops"]
+    ):
+        batch["global_crops_teacher"] = stack("global_crops_teacher", n_g)
+    if samples[0].get("gram_teacher_crops") is not None:
+        batch["gram_teacher_crops"] = stack(
+            "gram_teacher_crops", len(samples[0]["gram_teacher_crops"])
+        )
+    if samples[0].get("offsets"):
+        batch["offsets"] = np.asarray(
+            [s["offsets"] for s in samples], np.int32
+        )
+
+    grid = global_crops_size // patch_size
+    T = grid * grid
+    C = mask_capacity(T, mask_ratio_min_max[1])
+    masks, idx, w, valid = sample_ibot_masks(
+        rng,
+        n_images=n_g * B,
+        n_tokens=T,
+        capacity=C,
+        grid=(grid, grid),
+        mask_ratio_min_max=tuple(mask_ratio_min_max),
+        mask_probability=mask_probability,
+        random_circular_shift=mask_random_circular_shift,
+    )
+    batch["masks"] = masks
+    batch["mask_indices"] = idx
+    batch["mask_weights"] = w
+    batch["mask_valid"] = valid
+
+    if "label" in samples[0]:
+        batch["labels"] = np.asarray([s["label"] for s in samples], np.int64)
+    return batch
+
+
+def collate_eval(samples: list[dict], dtype=np.float32) -> dict:
+    """Plain supervised batch: {image [B,H,W,3], label [B]}."""
+    return {
+        "image": np.stack([s["image"] for s in samples]).astype(dtype),
+        "label": np.asarray([s["label"] for s in samples], np.int64),
+    }

@@ -1,6 +1,7 @@
 """Synthetic random-data backend (``data.backend=synthetic``): this
-package's numpy copy of ``dinov3_tpu/data/synthetic.py``'s batch maker, so
-one seed gives the JAX package's batch bit for bit. No dataset is needed.
+package's numpy copy of ``dinov3_tpu/data/synthetic.py``'s batch maker and
+``SyntheticDataset``, so one seed gives the JAX package's batch bit for
+bit. No dataset is needed.
 """
 
 from __future__ import annotations
@@ -66,3 +67,35 @@ def make_synthetic_batch(cfg, batch_size: int, seed=0) -> dict:
         batch["gram_teacher_crops"] = rng.standard_normal(
             spec["gram_teacher_crops"][0], dtype=np.float32)
     return batch
+
+
+class SyntheticDataset:
+    """Infinite iterator over synthetic batches. Batch i of host ``rank``
+    is drawn from the key (seed, rank, i), so hosts draw disjoint streams
+    and ``advance`` skips the first n batches (data-stream resume).
+    ``train.cache_dataset`` draws a pool of ``CACHE_POOL`` batches once and
+    cycles it."""
+
+    CACHE_POOL = 8
+
+    def __init__(self, cfg, batch_size: int, seed: int = 0, rank: int = 0,
+                 world_size: int = 1, advance: int = 0):
+        self.cfg = cfg
+        self.batch_size = batch_size
+        self.seed = seed
+        self.rank = rank
+        self.world_size = world_size
+        self.advance = advance
+        self.cache = bool(cfg.train.get("cache_dataset", False))
+
+    def _batch(self, i: int) -> dict:
+        return make_synthetic_batch(self.cfg, self.batch_size,
+                                    seed=(self.seed, self.rank, i))
+
+    def __iter__(self):
+        pool = ([self._batch(i) for i in range(self.CACHE_POOL)]
+                if self.cache else None)
+        i = self.advance
+        while True:
+            yield pool[i % len(pool)] if pool else self._batch(i)
+            i += 1

@@ -15,6 +15,12 @@ The training tree ``{"student": {backbone, dino_head, ibot_head},
 names, ``mlp_i`` -> ``mlp.{2i}`` (the Linear layers between the GELUs)
 and ``prototypes`` [bottleneck, K] -> ``last_layer.weight`` [K,
 bottleneck]. A gradient tree of the same structure maps the same way.
+
+``train_state_from_jax`` takes the leaves of a whole JAX ``TrainState``
+keyed by their ``jax.tree_util.keystr`` paths (the JAX package's local-npz
+checkpoint) and returns the student, the teacher, the Adam moments (keyed
+by the student's names), the update count and the step. bf16 leaves that
+``np.savez`` stored as 2-byte void records are read as bf16 by their bits.
 """
 
 from __future__ import annotations
@@ -75,7 +81,9 @@ def _to_torch(value, transpose=False) -> torch.Tensor:
     if transpose:
         a = a.T
     a = np.array(a, order="C")  # a writable, contiguous copy
-    if a.dtype.name == "bfloat16":  # numpy has no bf16: move the bits
+    # numpy has no bf16: move the bits (of an ml_dtypes array, or of the
+    # 2-byte void records np.savez writes for one)
+    if a.dtype.name == "bfloat16" or (a.dtype.kind == "V" and a.dtype.itemsize == 2):
         return torch.from_numpy(a.view(np.uint16)).view(torch.bfloat16)
     return torch.from_numpy(a)
 
@@ -136,3 +144,54 @@ def state_dict_from_jax(params: Mapping) -> dict[str, torch.Tensor]:
                 a = a.reshape(1, -1)
             put(name, a)
     return out
+
+
+_KEY_PART = re.compile(r"\.(\w+)|\['([^']*)'\]|\[(\d+)\]")
+
+
+def keystr_path(key: str) -> tuple[str, ...]:
+    """A ``jax.tree_util.keystr`` path (``.params['student']['backbone']``,
+    ``.opt_state.adam.count``) -> its names."""
+    parts, pos = [], 0
+    for m in _KEY_PART.finditer(key):
+        if m.start() != pos:
+            break
+        parts.append(next(g for g in m.groups() if g is not None))
+        pos = m.end()
+    if pos != len(key) or not parts:
+        raise ValueError(f"not a keystr path: {key!r}")
+    return tuple(parts)
+
+
+def train_state_from_jax(flat: Mapping[str, Any]) -> dict:
+    """Leaves of a JAX ``TrainState`` (``{keystr path: array}``) -> {"student":
+    state_dict, "teacher": state_dict, "mu": {name: tensor}, "nu": {...},
+    "count": int, "step": int}, names those of ``SSLMetaArch.student``.
+    The scheduled AdamW keeps the schedule index (``opt_state.count``) and
+    Adam's bias-correction count (``opt_state.adam.count``) apart; the
+    port keeps one count for both, so they must agree. Softmax centers
+    (``center_state``) are not read: the port trains with Sinkhorn-Knopp
+    targets, which keep none. A Gram teacher or fp8/int8 amax rings are
+    refused (ROADMAP M2, M9)."""
+    tree: dict = {}
+    for key, value in flat.items():
+        *parents, leaf = keystr_path(key)
+        node = tree
+        for p in parents:
+            node = node.setdefault(p, {})
+        node[leaf] = value
+    params, opt = tree["params"], tree["opt_state"]
+    if set(params) != {"student", "teacher"}:
+        raise NotImplementedError(
+            f"JAX checkpoint with params {sorted(params)}: only the student "
+            "and teacher are ported (the Gram teacher waits, ROADMAP M2)")
+    if "lowp" in tree:
+        raise NotImplementedError("fp8/int8 amax rings wait (ROADMAP M9)")
+    count, adam_count = int(np.asarray(opt["count"])), int(np.asarray(opt["adam"]["count"]))
+    if count != adam_count:
+        raise ValueError(f"schedule count {count} != Adam count {adam_count}")
+    out = meta_state_dicts_from_jax({"student": params["student"],
+                                     "teacher": params["teacher"]})
+    moments = meta_state_dicts_from_jax({"mu": opt["adam"]["mu"],
+                                         "nu": opt["adam"]["nu"]})
+    return {**out, **moments, "count": count, "step": int(np.asarray(tree["step"]))}

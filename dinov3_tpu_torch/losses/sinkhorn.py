@@ -30,8 +30,8 @@ def sinkhorn_knopp(logits: torch.Tensor, temperature: float,
         log_b = torch.log(valid.float().sum().clamp(min=1.0))
         xf = xf + torch.where(valid, 0.0, NEG)[:, None]
     else:
-        log_b = torch.tensor(math.log(B), dtype=torch.float32,
-                             device=logits.device)
+        log_b = torch.full((), math.log(B), dtype=torch.float32,
+                           device=logits.device)
     xs = xf - torch.logsumexp(xf.reshape(-1), dim=0)
     del xf
     r = xs.new_zeros(B, 1)

@@ -28,7 +28,8 @@ def rope_periods(head_dim: int, base: float | None = 100.0,
     n = head_dim // 4
     if base is not None:
         exps = 2.0 * torch.arange(n, dtype=dtype, device=device) / (head_dim / 2.0)
-        return torch.tensor(base, dtype=dtype, device=device) ** exps
+        # a fill on the device, not a host tensor copied over (which waits)
+        return torch.full((), base, dtype=dtype, device=device) ** exps
     ratio = max_period / min_period
     exponents = torch.linspace(0.0, 1.0, n, dtype=dtype, device=device)
     return (ratio ** exponents) * (max_period / ratio)

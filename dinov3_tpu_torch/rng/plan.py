@@ -65,7 +65,10 @@ def plan_to_device(plan: dict | None, device) -> dict:
         else:
             t = torch.as_tensor(np.asarray(value) if not torch.is_tensor(value)
                                 else value)
-            out[key] = t.to(device, torch.bool if key == "keep" else torch.int64)
+            # non_blocking: from pageable memory the copy is staged at
+            # once, so the host does not wait for the queued work
+            out[key] = t.to(device, torch.bool if key == "keep" else torch.int64,
+                            non_blocking=True)
     return out
 
 

@@ -13,6 +13,7 @@ from dinov3_tpu_torch.train.schedules import Schedules, build_schedules
 from dinov3_tpu_torch.train.ssl_meta_arch import SSLMetaArch
 from dinov3_tpu_torch.train.train_step import (
     TrainState,
+    make_train_launch,
     make_train_step,
     packed_layout,
 )
@@ -26,6 +27,7 @@ class TrainSetup:
     optimizer: ScheduledAdamW
     state: TrainState
     step_fn: Callable  # step_fn(state, batch, scalars, plan=None) -> (state, metrics)
+    launch_fn: Callable  # the same step returning (state, StepMetrics), unread
 
     def scalars(self, iteration: int) -> dict:
         s = self.schedules.at(iteration)
@@ -61,4 +63,5 @@ def build_train_setup(cfg, example_batch: dict, *, device="cuda",
     state = TrainState(meta=meta, opt_state=optimizer.init_state(meta.student))
     return TrainSetup(cfg=cfg, meta=meta, schedules=schedules,
                       optimizer=optimizer, state=state,
-                      step_fn=make_train_step(optimizer, seed=seed))
+                      step_fn=make_train_step(optimizer, seed=seed),
+                      launch_fn=make_train_launch(optimizer, seed=seed))

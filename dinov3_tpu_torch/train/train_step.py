@@ -6,7 +6,10 @@ student (``train/optimizer.py``).
 
 PyTorch modules own their parameters, so the state is updated in place
 and handed back: ``step(state, batch, scalars, plan=None) -> (state,
-metrics)``.
+metrics)``. The step's metrics cross to the host in one read:
+``launch`` returns them as ``StepMetrics``, one device tensor, and a
+training loop reads it once it has queued the next batch's copy, so the
+host's batch work overlaps the step's device work.
 """
 
 from __future__ import annotations
@@ -30,12 +33,31 @@ class TrainState:
 
 
 def put_batch(batch: dict, device) -> dict:
-    """Host (numpy) batch -> tensors on ``device``; tensors pass through."""
+    """Host (numpy) batch -> tensors on ``device``; tensors already there
+    pass through. For the card the host arrays are first copied into
+    pinned memory, so the copy is queued on the stream and the call
+    returns without waiting for it (from pageable memory it would wait)."""
+    dev = torch.device(device)
     out = {}
     for k, v in batch.items():
         t = v if torch.is_tensor(v) else torch.from_numpy(np.ascontiguousarray(v))
-        out[k] = t.to(device, non_blocking=True)
+        if dev.type == "cuda" and t.device.type == "cpu":
+            t = t.pin_memory()
+        out[k] = t.to(dev, non_blocking=True)
     return out
+
+
+class StepMetrics:
+    """One step's loss terms and per-submodel pre-clip gradient norms,
+    stacked in one fp32 tensor where the step ran. ``read`` copies them to
+    the host in one transfer: {name: float}."""
+
+    def __init__(self, names: list, values: torch.Tensor):
+        self.names = names
+        self.values = values
+
+    def read(self) -> dict:
+        return dict(zip(self.names, self.values.tolist()))
 
 
 def packed_layout(cfg, batch: dict):
@@ -50,17 +72,17 @@ def packed_layout(cfg, batch: dict):
         n_prefix=n_prefix)
 
 
-def make_train_step(optimizer: ScheduledAdamW, seed: int = 0):
-    """Returns ``step(state, batch, scalars, plan=None) -> (state, metrics)``.
+def make_train_launch(optimizer: ScheduledAdamW, seed: int = 0):
+    """Returns ``launch(state, batch, scalars, plan=None) -> (state,
+    StepMetrics)``: the step, queued on the device with no host read.
 
     ``scalars``: {"teacher_temp", "momentum"} of this iteration
     (``TrainSetup.scalars``). ``plan``: the packed pass's drop-path plan
     (torch or numpy arrays, e.g. the JAX plan's ``["packed"]``); when it
     is given the step draws nothing, else it draws its own from a
-    generator keyed by (seed, iteration). ``metrics``: the loss terms and
-    the per-submodel pre-clip gradient norms, as floats."""
+    generator keyed by (seed, iteration)."""
 
-    def step(state: TrainState, batch: dict, scalars: dict, plan=None):
+    def launch(state: TrainState, batch: dict, scalars: dict, plan=None):
         meta = state.meta
         device = next(meta.student.parameters()).device
         batch = put_batch(batch, device)
@@ -79,8 +101,23 @@ def make_train_step(optimizer: ScheduledAdamW, seed: int = 0):
                                  float(scalars["momentum"]))
         meta.student.zero_grad(set_to_none=True)
         state.step += 1
-        metrics = {k: v.item() for k, v in loss_dict.items()}
-        metrics.update({f"grad_norm/{k}": v.item() for k, v in norms.items()})
-        return state, metrics
+        names = list(loss_dict) + [f"grad_norm/{k}" for k in norms]
+        values = torch.stack([v.detach().float() for v in loss_dict.values()]
+                             + [v.float() for v in norms.values()])
+        return state, StepMetrics(names, values)
+
+    return launch
+
+
+def make_train_step(optimizer: ScheduledAdamW, seed: int = 0):
+    """Returns ``step(state, batch, scalars, plan=None) -> (state,
+    metrics)``: ``make_train_launch``'s step followed by its one read;
+    ``metrics`` holds the loss terms and the per-submodel pre-clip
+    gradient norms as floats."""
+    launch = make_train_launch(optimizer, seed)
+
+    def step(state: TrainState, batch: dict, scalars: dict, plan=None):
+        state, metrics = launch(state, batch, scalars, plan)
+        return state, metrics.read()
 
     return step

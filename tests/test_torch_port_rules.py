@@ -37,6 +37,37 @@ def test_port_imports_no_jax_and_nothing_of_the_jax_package(path):
         assert top not in FORBIDDEN, f"{path.name} imports {mod}"
 
 
+# calls that end, fork or strip the process a test worker runs in
+FORBIDDEN_CALLS = {("os", "_exit"), ("os", "fork"), ("os", "forkpty"),
+                   ("gc", "disable")}
+RULED_TESTS = ("test_torch_trainer.py", "test_torch_data.py")
+
+
+def _called_attributes(path: Path):
+    tree = ast.parse(path.read_text(), filename=str(path))
+    for node in ast.walk(tree):
+        if (isinstance(node, ast.Attribute) and isinstance(node.value, ast.Name)):
+            yield node.value.id, node.attr, node.lineno
+
+
+@pytest.mark.parametrize("path", _port_files() + [REPO / "tests" / t for t in RULED_TESTS],
+                         ids=lambda p: str(p.relative_to(REPO)))
+def test_no_exit_fork_or_gc_disable(path):
+    """No ``os._exit``, ``os.fork`` or ``gc.disable`` in the port, its
+    scripts or the trainer's and data pipeline's tests: a test worker that
+    runs them dies or keeps a changed collector."""
+    found = [f"{mod}.{attr} at line {line}" for mod, attr, line in _called_attributes(path)
+             if (mod, attr) in FORBIDDEN_CALLS]
+    assert not found, f"{path.name}: {found}"
+
+
+def test_the_call_rule_sees_what_it_forbids(tmp_path):
+    bad = tmp_path / "bad.py"
+    bad.write_text("import gc, os\ngc.disable()\nf = os._exit\nif os.fork():\n    pass\n")
+    assert sorted((m, a) for m, a, _ in _called_attributes(bad) if (m, a) in FORBIDDEN_CALLS) \
+        == [("gc", "disable"), ("os", "_exit"), ("os", "fork")]
+
+
 def test_default_config_copy_equals_the_jax_one():
     ours = PORT / "configs" / "ssl_default_config.yaml"
     theirs = REPO / "dinov3_tpu" / "configs" / "ssl_default_config.yaml"
