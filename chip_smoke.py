@@ -50,6 +50,16 @@ G. the pretraining CLI (``python -m dinov3_tpu_torch.train.train``) at
    pipeline on texture images. Each child's K1-K5 launches are checked
    against ``STEP_LAUNCHES`` per step; the checkpoints are deleted after.
 
+H. the recipe as written (``configs/train/vitl16_im1k.yaml`` with only
+   ``data.backend=synthetic``: B=64, streaming Sinkhorn targets, K-tile
+   8192) through ``build_train_setup`` + ``step_fn`` (H1: 5 timed steps,
+   every loss finite, K1-K5 launches pinned, one profiled step), then the
+   same weights, batch and plans with materialized targets (H2), under
+   ``blocks`` and ``full`` activation checkpointing (H3), with
+   ``optim.accum_steps=2`` (H4), softmax centering with bf16 targets (H5),
+   the phase-F card-vs-CPU step with streaming targets, ``blocks`` remat
+   and two microbatches (H6), and one trainer CLI run of the recipe (H7).
+
 Prints the kernel table as one JSON line, the card's name and power
 limit, and as its last line ``{"ok": true, "device": {...}}``. Any
 failure raises and exits non-zero; without a card it exits non-zero
@@ -79,6 +89,8 @@ L2_BYTES = 50 * 2 ** 20     # H100 L2 cache
 # the mixed_ragged traffic bands of scripts/bench_serve.py:
 # (probability, (min_px, max_px)), H and W drawn on the patch grid
 MIXED_RAGGED = [(0.70, (96, 256)), (0.20, (208, 320)), (0.10, (336, 512))]
+# images a step in the recipe as written (configs/train/vitl16_im1k.yaml)
+RECIPE_B = 64
 # bf16 tolerances (see each use)
 FLASH_BF16_TOL = 2e-2
 N_REQUESTS = 64
@@ -407,12 +419,15 @@ def phase_b(cfg) -> dict:
                 randn(2, 333, 4, 64, dtype=torch.float32), None,
                 "[2x4, 333, 64] fp32")
 
-    # K1 at the training step's shapes: the teacher's [64 x 16, 197, 64]
-    # with no segments, one student block's [81 x 16, 197, 64] with the
-    # packed layout's ids after a drop-path subset; v a view of qkv
+    # K1 at the training step's shapes, B=32 (phase E) and the recipe's
+    # B=64 (phase H): the teacher's [2B x 16, 197, 64] with no segments,
+    # one student block's [keep x 16, 197, 64] with the packed layout's ids
+    # after a drop-path subset; v a view of qkv
     train = {}
     for key, rows, tseg in (("teacher", 2 * TRAIN_B, None),
-                            ("student", None, train_attention_seg())):
+                            ("student", None, train_attention_seg()),
+                            ("recipe teacher", 2 * RECIPE_B, None),
+                            ("recipe student", None, train_attention_seg(RECIPE_B))):
         tseg = None if tseg is None else torch.from_numpy(tseg).to(dev)
         rows = rows if tseg is None else tseg.shape[0]
         tqkv = randn(rows, 197, 3 * H * D)
@@ -420,7 +435,7 @@ def phase_b(cfg) -> dict:
                       for i in range(3))
         train[key] = check_flash(
             tq.contiguous(), tk.contiguous(), tv, tseg,
-            f"train {key} [{rows}x{H}, 197, {D}] bf16 {'seg' if key == 'student' else 'no seg'}",
+            f"train {key} [{rows}x{H}, 197, {D}] bf16 {'no seg' if tseg is None else 'seg'}",
             time_it=True)
         del tqkv, tq, tk, tv
     k1["train_shapes"] = train
@@ -431,11 +446,15 @@ def phase_b(cfg) -> dict:
     s, b = randn(1024) * 0.5 + 1, randn(1024)
     k4 = check_layernorm(x, s, b, f"serve plane [{R * N}, 1024] bf16",
                          time_it=True)
-    # K4 at a student block's norm in the training step: [81 x 197, 1024]
-    # bf16 rows with the fp32 master scale and bias
-    k4["train_shapes"] = {"student": check_layernorm(
-        randn(81 * 197, 1024) * 3 + 1, s.float(), b.float(),
-        "train student block [15957, 1024] bf16, fp32 params", time_it=True)}
+    # K4 at a student block's norm in the training step: [keep x 197,
+    # 1024] bf16 rows with the fp32 master scale and bias, at B=32 and at
+    # the recipe's B=64
+    k4["train_shapes"] = {}
+    for key, batch in (("student", TRAIN_B), ("recipe student", RECIPE_B)):
+        rows = train_attention_seg(batch).shape[0] * 197
+        k4["train_shapes"][key] = check_layernorm(
+            randn(rows, 1024) * 3 + 1, s.float(), b.float(),
+            f"train {key} block [{rows}, 1024] bf16, fp32 params", time_it=True)
     check_layernorm(randn(1003, 1024), s, b, "ragged rows [1003, 1024] bf16")
     check_layernorm(randn(50, 2048), s.repeat(2), b.repeat(2), "[50, 2048] bf16")
     check_layernorm(randn(9, 4096), s.repeat(4), b.repeat(4),
@@ -703,6 +722,15 @@ def train_attention_seg(batch_size: int = 32, rate: float = 0.3):
     return seg[plan["drop_path"]["idx"][0, 0].numpy()]
 
 
+def recipe_packed_rows() -> int:
+    """The packed student pass's rows at the recipe's B=64 (2B global
+    rows plus the rows of 5 local crops each)."""
+    from dinov3_tpu_torch.ops.packing import make_packed_layout
+
+    return make_packed_layout(n_global_rows=2 * RECIPE_B, n_local=8 * RECIPE_B,
+                              seq_global=197, seq_local=37, n_prefix=1).rows_total
+
+
 def check_flash_bwd(q, k, v, seg, label, time_it=False) -> dict:
     """K2 and K3 against ``attention_bwd_plain`` on the kernels' own O and
     LSE; each run twice, bitwise. Tolerance 2^-6 of the gradient's largest
@@ -900,6 +928,17 @@ def phase_b_bwd() -> dict:
     pad[0] = -1  # one row of nothing but pad tokens
     check_flash_bwd(randn(3, N, 4, 64), randn(3, N, 4, 64), randn(3, N, 4, 64),
                     pad, f"all-pad row [3x4, {N}, 64] bf16")
+    # K2/K3 at one student block of the recipe's B=64 step
+    rseg = torch.from_numpy(train_attention_seg(RECIPE_B)).to(dev)
+    rqkv = randn(rseg.shape[0], N, 3 * H * D)
+    rq, rk, rv = (rqkv[..., i * H * D:(i + 1) * H * D].reshape(rseg.shape[0], N, H, D)
+                  for i in range(3))
+    recipe = check_flash_bwd(rq.contiguous(), rk.contiguous(), rv, rseg,
+                             f"recipe block [{rseg.shape[0]}x{H}, {N}, {D}] bf16 seg",
+                             time_it=True)
+    for key in ("K2", "K3"):
+        rows[key]["train_shapes"] = {"recipe student": recipe[key]}
+    del rqkv, rq, rk, rv
     # K5 at a student block's norms ([81 x 197, 1024] bf16 with the fp32
     # master scale: 48 of a step's 50 launches, phase E) and at all the
     # packed student rows ([116 x 197, 1024])
@@ -910,6 +949,16 @@ def phase_b_bwd() -> dict:
     rows["K5"]["train_shapes"] = {"packed rows": check_layernorm_bwd(
         randn(116 * 197, 1024) * 3 + 1, s, "packed rows [22852, 1024] bf16, fp32 scale",
         time_it=True)}
+    # and at the recipe's B=64: a student block's norms and all its
+    # packed student rows
+    r_rows = train_attention_seg(RECIPE_B).shape[0] * 197
+    rows["K5"]["train_shapes"]["recipe student block"] = check_layernorm_bwd(
+        randn(r_rows, 1024) * 3 + 1, s,
+        f"recipe student block [{r_rows}, 1024] bf16, fp32 scale", time_it=True)
+    p_rows = recipe_packed_rows() * 197
+    rows["K5"]["train_shapes"]["recipe packed rows"] = check_layernorm_bwd(
+        randn(p_rows, 1024) * 3 + 1, s,
+        f"recipe packed rows [{p_rows}, 1024] bf16, fp32 scale", time_it=True)
     check_layernorm_bwd(randn(1003, 1024), s, "ragged rows [1003, 1024] bf16")
     check_layernorm_bwd(randn(100, 1024), s, "fewer rows than CTAs [100, 1024] bf16")
     check_layernorm_bwd(randn(77, 96, dtype=f32), s[:96].contiguous(),
@@ -1008,7 +1057,7 @@ def phase_e() -> tuple[dict, dict]:
                       "peak_gib": peak}
 
 
-def sync_points(setup, state, dbatch) -> None:
+def sync_points(setup, state, dbatch, label: str = "E") -> None:
     """The calls in one step's launch (``launch_fn``, before its metrics
     are read) that make the host wait for the card, from
     ``torch.cuda.set_sync_debug_mode``'s warnings, by file and line."""
@@ -1044,7 +1093,7 @@ def sync_points(setup, state, dbatch) -> None:
         finally:
             torch.cuda.set_sync_debug_mode(0)
     pending.read()
-    print(f"[E] synchronizing calls in one step launch: {sum(sites.values())}"
+    print(f"[{label}] synchronizing calls in one step launch: {sum(sites.values())}"
           + "".join(f"; {n} x {site}" for site, n in sites.most_common(12)))
 
 
@@ -1132,11 +1181,12 @@ def batch_copy_times(cfg, host_batch) -> None:
               f"({nbytes / copy_ms / 1e6:.1f} GB/s)")
 
 
-def profile_step(setup, state, host_batch) -> None:
+def profile_step(setup, state, host_batch, label: str = "E") -> dict:
     """Device time by kernel class over one training step whose batch is
     put on the card (``put_batch``, pinned) inside the recorded window,
     from torch.profiler device events (the tracer warmed up first); the
-    wall time is that of the recorded step, tracer included."""
+    wall time is that of the recorded step, tracer included. Returns the
+    wall and busy ms and the ms by class ({} without device events)."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -1155,10 +1205,10 @@ def profile_step(setup, state, host_batch) -> None:
         wall_ms = (time.perf_counter() - t0) * 1e3
     events = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
     if not events:
-        print("[E] profile: no device events recorded (device time not measured)")
-        return
+        print(f"[{label}] profile: no device events recorded (device time not measured)")
+        return {}
     h2d = [e.time_range.elapsed_us() / 1e3 for e in events if "htod" in e.name.lower()]
-    print(f"[E] profiled step: host-to-device memcpy {sum(h2d):.3f} ms in {len(h2d)} "
+    print(f"[{label}] profiled step: host-to-device memcpy {sum(h2d):.3f} ms in {len(h2d)} "
           f"copies ({sorted({e.name for e in events if 'htod' in e.name.lower()})})")
     classes = (("K1 flash_fwd", ("flash_fwd", "flash_tile_schedule")),
                ("K2 flash_bwd_dq", ("flash_bwd_dq",)),
@@ -1183,11 +1233,12 @@ def profile_step(setup, state, host_batch) -> None:
         n, tt = by_name.get(e.name, (0, 0.0))
         by_name[e.name] = (n + 1, tt + t)
     busy = sum(buckets.values())
-    print(f"[E] profile of one step (batch put inside it): wall {wall_ms:.2f} ms, device busy {busy:.2f} ms, "
+    print(f"[{label}] profile of one step (batch put inside it): wall {wall_ms:.2f} ms, device busy {busy:.2f} ms, "
           f"idle share {max(0.0, 1 - busy / wall_ms):.3f}; " + ", ".join(
               f"{k} {v:.2f} ms" for k, v in buckets.items()))
     for name, (n, t) in sorted(by_name.items(), key=lambda r: -r[1][1])[:12]:
-        print(f"[E]   {t:8.3f} ms  x{n:<4d} {name[:100]}")
+        print(f"[{label}]   {t:8.3f} ms  x{n:<4d} {name[:100]}")
+    return {"wall_ms": wall_ms, "busy_ms": busy, **buckets}
 
 
 # ---------------------------------------------------------------- phase F
@@ -1197,26 +1248,36 @@ def phase_f() -> None:
     same weights (drawn on the CPU from one seed), batch and drop-path
     plan, at a mid-schedule iteration where lr is at its peak. LayerScale
     is 1 so the blocks reach the losses."""
+    card_vs_cpu_step("F", ["loss.streaming_targets=false"])
+
+
+def card_vs_cpu_step(label: str, overrides: list) -> None:
+    """The phase-F pattern under ``overrides``: a 2-block ViT-L-width model
+    (4096 prototypes, B=4, LayerScale 1) takes one step on the card and
+    one on the CPU from the same weights, batch and drop-path plans (one a
+    microbatch under ``optim.accum_steps``); loss terms, gradient norms
+    and the updated student compared."""
     import torch
 
     from dinov3_tpu_torch.configs import load_config
     from dinov3_tpu_torch.data import make_synthetic_batch
     from dinov3_tpu_torch.rng import packed_pass_plan, step_generator
     from dinov3_tpu_torch.train import build_train_setup
-    from dinov3_tpu_torch.train.train_step import packed_layout
+    from dinov3_tpu_torch.train.train_step import packed_layout, split_microbatches
 
     B = 4
     cfg = load_config(
         os.path.join(REPO, "configs", "train", "vitl16_im1k.yaml"),
-        [f"train.batch_size_per_device={B}", "loss.streaming_targets=false",
-         "student.layerscale=1.0", "dino.head_n_prototypes=4096",
-         "ibot.head_n_prototypes=4096"], n_devices=1)
+        [f"train.batch_size_per_device={B}", "student.layerscale=1.0",
+         "dino.head_n_prototypes=4096", "ibot.head_n_prototypes=4096", *overrides],
+        n_devices=1)
     batch = make_synthetic_batch(cfg, B, seed=1)
     it = cfg.optim.warmup_epochs * cfg.train.OFFICIAL_EPOCH_LENGTH
-    plan = packed_pass_plan(step_generator(0, it), 2,
-                            packed_layout(cfg, batch).rows_total,
-                            cfg.student.drop_path_rate)
-    check(bool(plan), "[F] no drop-path plan")
+    accum = int(cfg.optim.accum_steps)
+    plans = [packed_pass_plan(step_generator(0, it, None if accum == 1 else j), 2,
+                              packed_layout(cfg, mb).rows_total, cfg.student.drop_path_rate)
+             for j, mb in enumerate(split_microbatches(batch, accum))]
+    check(all(plans), f"[{label}] no drop-path plan")
     results = {}
     for dev in ("cuda", "cpu"):
         setup = build_train_setup(cfg, batch, device=dev, seed=2, n_blocks=2)
@@ -1225,8 +1286,9 @@ def phase_f() -> None:
         before = {n: p.detach().cpu().clone()
                   for n, p in setup.meta.student.named_parameters()}
         t0 = time.perf_counter()
-        state, m = setup.step_fn(state, batch, setup.scalars(it), plan=plan)
-        print(f"[F] one step on {dev}: {(time.perf_counter() - t0) * 1e3:.1f} ms; "
+        state, m = setup.step_fn(state, batch, setup.scalars(it),
+                                 plan=plans if accum > 1 else plans[0])
+        print(f"[{label}] one step on {dev}: {(time.perf_counter() - t0) * 1e3:.1f} ms; "
               + ", ".join(f"{k} {m[k]:.4f}" for k in LOSS_KEYS))
         after = {n: p.detach().cpu() for n, p in setup.meta.student.named_parameters()}
         results[dev] = (m, before, after)
@@ -1240,8 +1302,8 @@ def phase_f() -> None:
     for k in LOSS_KEYS + tuple(k for k in mc if k.startswith("grad_norm/")):
         rel = abs(mc[k] - mp[k]) / max(abs(mp[k]), 1e-6)
         worst = max(worst, rel)
-        check(rel <= 2.0 ** -5, f"[F] {k}: card {mc[k]:.6g} vs CPU {mp[k]:.6g}")
-    print(f"[F] card vs CPU: loss terms and gradient norms within {worst:.3e} "
+        check(rel <= 2.0 ** -5, f"[{label}] {k}: card {mc[k]:.6g} vs CPU {mp[k]:.6g}")
+    print(f"[{label}] card vs CPU: loss terms and gradient norms within {worst:.3e} "
           f"relative (tol {2.0 ** -5:.3e})")
     # updated student: from fresh moments Adam moves each entry by
     # lr * lr_mult * (1 - b1) / sqrt(1 - b2) * sign(g), plus weight decay;
@@ -1255,13 +1317,13 @@ def phase_f() -> None:
         err = (d_c - d_p).abs()
         step = d_p.abs().max().item()
         check(err.max().item() <= 2 * step + 1e-6,
-              f"[F] {n}: update differs by {err.max().item():.3e} > 2 x {step:.3e}")
+              f"[{label}] {n}: update differs by {err.max().item():.3e} > 2 x {step:.3e}")
         moved = d_p.abs() > 0.1 * step
         close += int((err[moved] <= 0.1 * d_p.abs()[moved]).sum())
         total += int(moved.sum())
-    print(f"[F] updated student: {close / total:.4f} of the moved entries within "
+    print(f"[{label}] updated student: {close / total:.4f} of the moved entries within "
           f"a tenth of their step (lr {lr:.3e})")
-    check(close >= 0.9 * total, "[F] updated students disagree")
+    check(close >= 0.9 * total, f"[{label}] updated students disagree")
 
 
 # ---------------------------------------------------------------- phase G
@@ -1273,24 +1335,26 @@ CLI_CONFIG = os.path.join("configs", "train", "vitl16_im1k.yaml")
 CLI_OVERRIDES = TRAIN_OVERRIDES + ["checkpointing.period=2"]
 
 
-def run_cli(name: str, args: list, overrides=(), timeout: int = 420) -> dict:
+def run_cli(name: str, args: list, overrides=(), timeout: int = 420,
+            base=CLI_OVERRIDES, label: str = "G", log_dir: str = G_DIR) -> dict:
     """One run of ``python -m dinov3_tpu_torch.train.train`` as a child
-    process with a time limit; its output goes to ``build/phase_g/<name>.log``
-    and its last line is its result. Raises on a non-zero exit."""
+    process with a time limit (the ``base`` overrides, then
+    ``overrides``); its output goes to ``<log_dir>/<name>.log`` and its
+    last line is its result. Raises on a non-zero exit."""
     cmd = [sys.executable, "-m", "dinov3_tpu_torch.train.train",
-           "--config-file", CLI_CONFIG, *args, *CLI_OVERRIDES, *overrides]
+           "--config-file", CLI_CONFIG, *args, *base, *overrides]
     t0 = time.perf_counter()
     proc = subprocess.run(cmd, cwd=REPO, capture_output=True, text=True,
                           timeout=timeout)
     wall = time.perf_counter() - t0
-    with open(os.path.join(G_DIR, f"{name}.log"), "w") as f:
+    with open(os.path.join(log_dir, f"{name}.log"), "w") as f:
         f.write(proc.stdout + proc.stderr)
     if proc.returncode != 0:
         tail = (proc.stdout + proc.stderr).splitlines()[-40:]
-        raise SmokeFailure(f"[G] {name}: exit {proc.returncode}\n" + "\n".join(tail))
+        raise SmokeFailure(f"[{label}] {name}: exit {proc.returncode}\n" + "\n".join(tail))
     result = json.loads(proc.stdout.strip().splitlines()[-1])
     result["wall_s"] = wall
-    print(f"[G] {name}: {wall:.1f} s wall; start {result.get('start_iteration')}, "
+    print(f"[{label}] {name}: {wall:.1f} s wall; start {result.get('start_iteration')}, "
           f"iterations {result.get('iterations')}, launches {result['launches']}"
           + (f"; --benchmark {result['ms_per_step']:.2f} ms a step, "
              f"{result['img_per_sec']:.2f} img/s (steps "
@@ -1440,6 +1504,231 @@ def _phase_g(step: dict, cfg) -> dict:
     return {"uninterrupted": a, "benchmark": bench, "resumed": r2}
 
 
+# ---------------------------------------------------------------- phase H
+
+H_DIR = os.path.join(REPO, "build", "phase_h")
+# the recipe as written: only the data backend changes (the recipe's
+# imagenet backend needs a dataset no run here can download)
+RECIPE_OVERRIDES = ["data.backend=synthetic"]
+# the remat arms recompute each student block's forward in the backward:
+# K1 once more and K4 twice more a block
+REMAT_LAUNCHES = {"K1": 72, "K2": 24, "K3": 24, "K4": 147, "K5": 50}
+# step-0 loss terms of two arms that differ only in how the targets are
+# summed (streaming vs materialized) or in what the backward recomputes:
+# fp32 sums of 65,536 terms in other orders, 1e-4 relative
+H_LOSS_RTOL = 1e-4
+
+
+def recipe_arm(label: str, extra: list, steps: int, launches: dict | None,
+               profile: bool = False) -> dict:
+    """The recipe at full width and depth under ``extra``, through
+    ``build_train_setup`` + ``step_fn``: step 0 as the warm-up (its loss
+    terms kept for the comparisons), then ``steps`` timed steps with every
+    loss finite and, where ``launches`` is given, K1-K5 launches pinned
+    per step. Returns the step-0 losses, the times, the peak memory and
+    the launches; optionally one profiled step and the step's host waits."""
+    import torch
+
+    from dinov3_tpu_torch.configs import load_config
+    from dinov3_tpu_torch.data import make_synthetic_batch
+    from dinov3_tpu_torch.train import build_train_setup, put_batch
+    from dinov3_tpu_torch.train.train import resolved_engine
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    cfg = load_config(os.path.join(REPO, CLI_CONFIG), RECIPE_OVERRIDES + extra, n_devices=1)
+    B = cfg.train.batch_size_per_device
+    batch = make_synthetic_batch(cfg, B, seed=0)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    setup = build_train_setup(cfg, batch, device="cuda", seed=0)
+    engine = resolved_engine(setup)
+    print(f"[{label}] {' '.join(extra) or 'the recipe as written'}: B={B}, {engine}; "
+          f"built in {time.perf_counter() - t0:.1f} s")
+    dbatch = put_batch(batch, "cuda")
+    state, m0 = setup.step_fn(setup.state, dbatch, setup.scalars(0))
+    torch.cuda.synchronize()
+    check(all(np.isfinite(m0[k]) for k in LOSS_KEYS), f"[{label}] non-finite step 0 {m0}")
+    print(f"[{label}] step 0 (warm-up): " + ", ".join(f"{k} {m0[k]:.6f}" for k in LOSS_KEYS))
+    reset_counts()
+    times = []
+    for _ in range(steps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, m = setup.step_fn(state, dbatch, setup.scalars(state.step))
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+        check(all(np.isfinite(m[k]) for k in LOSS_KEYS), f"[{label}] non-finite loss {m}")
+    counts = read_counts()
+    per_step = {k: v / steps for k, v in counts.items()}
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    out = {"m0": m0, "last": m, "median_ms": float(np.median(times)),
+           "mean_ms": float(np.mean(times)), "peak_gib": peak, "launches": counts,
+           "per_step": per_step, "B": B, "state": state}
+    print(f"[{label}] {steps} steps: median {out['median_ms']:.1f} ms, mean "
+          f"{out['mean_ms']:.1f} ms ({', '.join(f'{t:.1f}' for t in times)}), "
+          f"{B / out['median_ms'] * 1e3:.2f} img/s at the median, peak {peak:.2f} GiB; "
+          f"launches per step {per_step}; last " +
+          ", ".join(f"{k} {m[k]:.4f}" for k in LOSS_KEYS))
+    if launches is not None:
+        check(per_step == launches, f"[{label}] launches per step {per_step} != {launches}")
+    if profile:
+        sync_points(setup, state, dbatch, label)
+        out["profile"] = profile_step(setup, state, batch, label)
+    del setup, state, dbatch
+    out.pop("state")
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def same_losses(label: str, a: dict, b: dict) -> None:
+    """Step-0 loss terms of two arms within ``H_LOSS_RTOL``."""
+    worst = max(abs(a[k] - b[k]) / max(abs(b[k]), 1e-6) for k in LOSS_KEYS)
+    print(f"[{label}] step-0 loss terms against H1's: largest relative difference "
+          f"{worst:.3e} (tol {H_LOSS_RTOL:.0e}), bitwise "
+          f"{all(a[k] == b[k] for k in LOSS_KEYS)}")
+    check(worst <= H_LOSS_RTOL, f"[{label}] step-0 losses {a} vs H1's {b}")
+
+
+def phase_h() -> dict:
+    """The recipe as written (``configs/train/vitl16_im1k.yaml``: B=64,
+    streaming Sinkhorn targets, K-tile 8192) and its options on the card."""
+    import torch
+
+    h1 = recipe_arm("H1", [], 5, STEP_LAUNCHES, profile=True)
+    h2 = recipe_arm("H2", ["loss.streaming_targets=false"], 3, STEP_LAUNCHES, profile=True)
+    same_losses("H2", h2["m0"], h1["m0"])
+    print(f"[H2] materialized vs streaming targets at B=64: median {h2['median_ms']:.1f} vs "
+          f"{h1['median_ms']:.1f} ms ({h2['median_ms'] / h1['median_ms']:.4f} x), peak "
+          f"{h2['peak_gib']:.2f} vs {h1['peak_gib']:.2f} GiB "
+          f"({h2['peak_gib'] - h1['peak_gib']:+.2f} GiB)")
+    arms = {}
+    for key, extra in (("blocks", ["train.checkpointing=true"]),
+                       ("full", ["train.checkpointing_full=true"])):
+        arms[key] = arm = recipe_arm(f"H3 {key}", extra, 3, REMAT_LAUNCHES)
+        same_losses(f"H3 {key}", arm["m0"], h1["m0"])
+        print(f"[H3] remat {key}: median {arm['median_ms']:.1f} ms "
+              f"({arm['median_ms'] / h1['median_ms']:.4f} x H1), peak {arm['peak_gib']:.2f} GiB "
+              f"({arm['peak_gib'] - h1['peak_gib']:+.2f} GiB)")
+    h4 = recipe_arm("H4", ["optim.accum_steps=2"], 3,
+                    {k: 2 * v for k, v in STEP_LAUNCHES.items()})
+    print(f"[H4] accum_steps=2: median {h4['median_ms']:.1f} ms "
+          f"({h4['median_ms'] / h1['median_ms']:.4f} x H1), peak {h4['peak_gib']:.2f} GiB "
+          f"({h4['peak_gib'] - h1['peak_gib']:+.2f} GiB)")
+    phase_h_targets()
+    phase_h5()
+    card_vs_cpu_step("H6", ["loss.streaming_targets=true", "loss.k_tile=1024",
+                            "train.checkpointing=true", "optim.accum_steps=2"])
+    gc.collect()
+    torch.cuda.empty_cache()
+    shutil.rmtree(H_DIR, ignore_errors=True)
+    os.makedirs(H_DIR)
+    try:
+        cli = run_cli("recipe", ["--output-dir", os.path.join(H_DIR, "run"),
+                                 "--max-iterations", "4", "--benchmark", "2"],
+                      base=RECIPE_OVERRIDES, label="H7", log_dir=H_DIR)
+    finally:
+        shutil.rmtree(H_DIR, ignore_errors=True)
+    check(cli["launches"] == {k: 4 * v for k, v in STEP_LAUNCHES.items()},
+          f"[H7] launches {cli['launches']}")
+    check((cli["targets"], cli["remat"], cli["accum_steps"]) == ("streaming", "none", 1),
+          f"[H7] resolved {cli}")
+    check(np.isfinite(cli["final_loss"]), f"[H7] loss {cli['final_loss']}")
+    print(f"[H7] CLI, the recipe as written: {cli['ms_per_step']:.1f} ms a step over 2 steps "
+          f"({cli['img_per_sec']:.2f} img/s) against H1's median {h1['median_ms']:.1f} ms "
+          f"({cli['ms_per_step'] / h1['median_ms']:.4f} x); peak {cli['peak_memory_gib']:.2f} GiB")
+    return h1
+
+
+def phase_h_targets() -> None:
+    """Device time of the loss side at the recipe's B=64 shapes, the two
+    target engines apart from the step: the iBOT rows (2B x M masked
+    tokens by 65,536 prototypes, fp32 logits from the heads) and the DINO
+    pairs (10 student crops x 2 teacher crops of B rows). Each engine's
+    Sinkhorn targets (materialized q, or the factors) and its CE forward
+    and backward, from the same seeded logits (cuda_ms, the mean of 3)."""
+    import torch
+
+    from dinov3_tpu_torch.configs import load_config
+    from dinov3_tpu_torch.data import make_synthetic_batch
+    from dinov3_tpu_torch.losses import ibot_loss_from_spec, pair_ce_from_spec, sinkhorn_knopp
+
+    cfg = load_config(os.path.join(REPO, CLI_CONFIG), RECIPE_OVERRIDES, n_devices=1)
+    B, K, k_tile = cfg.train.batch_size_per_device, cfg.ibot.head_n_prototypes, cfg.loss.k_tile
+    batch = make_synthetic_batch(cfg, B, seed=0)
+    valid = torch.from_numpy(batch["mask_valid"].reshape(-1)).cuda().float()
+    weight = torch.from_numpy(batch["mask_weights"].reshape(-1)).cuda()
+    rows = valid.numel()
+    g = torch.Generator(device="cuda").manual_seed(0)
+    s_rows = torch.randn(rows, K, device="cuda", generator=g).requires_grad_()
+    t_rows = torch.randn(rows, K, device="cuda", generator=g)
+    n_l = cfg.crops.local_crops_number
+    s_cls = torch.randn(2 + n_l, B, K, device="cuda", generator=g).requires_grad_()
+    t_cls = torch.randn(2 * B, K, device="cuda", generator=g)
+
+    def targets(stream):
+        qm = sinkhorn_knopp(t_rows, 0.07, row_weights=valid, return_factors=stream)
+        qc = sinkhorn_knopp(t_cls, 0.07, return_factors=stream)
+        if stream:
+            return {"kind": "sinkhorn", "factors": qm}, {"kind": "sinkhorn", "factors": qc}
+        return {"kind": "probs", "probs": qm}, {"kind": "probs", "probs": qc.reshape(2, B, K)}
+
+    def ce(specs):
+        ibot = ibot_loss_from_spec(s_rows, specs[0], weight, 2 * B, k_tile=k_tile)
+        dino = pair_ce_from_spec(s_cls, specs[1], k_tile=k_tile).sum() / (B * 20)
+        (ibot + dino).backward()
+        s_rows.grad = s_cls.grad = None
+
+    print(f"[H] loss side at B={B}: iBOT rows [{rows}, {K}], DINO pairs "
+          f"[{2 + n_l} x 2, {B}, {K}], fp32 logits, K-tile {k_tile}")
+    for stream in (True, False):
+        with torch.no_grad():
+            t_ms = cuda_ms(lambda: targets(stream), 3, warmup=1)
+        specs = targets(stream)
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        c_ms = cuda_ms(lambda: ce(specs), 3, warmup=1)
+        extra = (torch.cuda.max_memory_allocated() - base) / 2 ** 30
+        print(f"[H] {'streaming' if stream else 'materialized'} targets: Sinkhorn "
+              f"{t_ms:.2f} ms, CE forward + backward {c_ms:.2f} ms, together "
+              f"{t_ms + c_ms:.2f} ms; the CE's peak above its inputs {extra:.2f} GiB")
+        del specs
+    del s_rows, t_rows, s_cls, t_cls
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def phase_h5() -> None:
+    """Softmax centering with bf16 targets, streaming: 2 steps, losses
+    finite, both centers moved off zero."""
+    import torch
+
+    from dinov3_tpu_torch.configs import load_config
+    from dinov3_tpu_torch.data import make_synthetic_batch
+    from dinov3_tpu_torch.train import build_train_setup, put_batch
+
+    cfg = load_config(os.path.join(REPO, CLI_CONFIG), RECIPE_OVERRIDES + [
+        "train.centering=softmax_center", "compute_precision.target_dtype=bf16"], n_devices=1)
+    B = cfg.train.batch_size_per_device
+    batch = make_synthetic_batch(cfg, B, seed=0)
+    setup = build_train_setup(cfg, batch, device="cuda", seed=0)
+    check(setup.meta.streaming_targets and setup.meta.target_dtype == torch.bfloat16,
+          "[H5] not streaming bf16 targets")
+    dbatch = put_batch(batch, "cuda")
+    state = setup.state
+    for i in range(2):
+        state, m = setup.step_fn(state, dbatch, setup.scalars(i))
+        check(all(np.isfinite(m[k]) for k in LOSS_KEYS), f"[H5] non-finite loss {m}")
+    norms = {k: float(c.abs().sum()) for k, c in state.center_state.items()}
+    print(f"[H5] softmax centering, bf16 targets, B={B}: step 1 " +
+          ", ".join(f"{k} {m[k]:.4f}" for k in LOSS_KEYS) + f"; |center| sums {norms}")
+    check(all(v > 0 and np.isfinite(v) for v in norms.values()), f"[H5] centers {norms}")
+    del setup, state, dbatch
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
 # ---------------------------------------------------------------- main
 
 def main() -> int:
@@ -1465,6 +1754,7 @@ def main() -> int:
     train_launches, step = phase_e()
     phase_f()
     cli = phase_g(step)["uninterrupted"]
+    recipe = phase_h()
     print(f"[smoke] all phases passed in {time.perf_counter() - t_start:.1f} s")
 
     table = []
@@ -1484,13 +1774,16 @@ def main() -> int:
         table.append({
             "name": name, "route": "cuda", "source": source,
             "replaces": replaces,
-            # the counted runs of the three paths: 3 serve packs (phase C),
-            # 5 training steps (phase E) and the trainer CLI's uninterrupted
-            # 4-iteration run (phase G, counted in its own process)
-            "launches": serve_launches[key] + train_launches[key] + cli["launches"][key],
+            # the counted runs of the four paths: 3 serve packs (phase C),
+            # 5 training steps (phase E), the trainer CLI's uninterrupted
+            # 4-iteration run (phase G, counted in its own process) and 5
+            # steps of the recipe as written (phase H1)
+            "launches": (serve_launches[key] + train_launches[key] + cli["launches"][key]
+                         + recipe["launches"][key]),
             "launches_per_serve_pack": serve_launches[key] / packs,
             "launches_per_train_step": train_launches[key] / 5,
             "launches_per_cli_iteration": cli["launches"][key] / 4,
+            "launches_per_recipe_step": recipe["per_step"][key],
             "max_abs_err": r["max_abs_err"], "ms": r["ms"],
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
             "bound_by": r["bound_by"], "library_ms": r["library_ms"],
@@ -1498,7 +1791,9 @@ def main() -> int:
                if k in r},
         })
     print(f"[smoke] train step {step['ms']:.1f} ms, "
-          f"{TRAIN_B / step['ms'] * 1e3:.2f} img/s, peak {step['peak_gib']:.2f} GiB")
+          f"{TRAIN_B / step['ms'] * 1e3:.2f} img/s, peak {step['peak_gib']:.2f} GiB; "
+          f"the recipe as written (B={recipe['B']}) {recipe['median_ms']:.1f} ms, "
+          f"{recipe['B'] / recipe['median_ms'] * 1e3:.2f} img/s, peak {recipe['peak_gib']:.2f} GiB")
     print(json.dumps({"kernels": table}))
     print(smi_line())
     print(json.dumps({"ok": True, "device": {

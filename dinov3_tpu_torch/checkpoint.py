@@ -3,8 +3,8 @@
 write-then-finalize discipline).
 
 A save of step n writes ``<dir>/tmp.<n>/state.pt`` (``torch.save`` of the
-student, the EMA teacher, the Adam moments, the update count and the step,
-all on the host), flushes and ``fsync``s it, then writes and ``fsync``s a
+student, the EMA teacher, the Adam moments, the softmax-centering centers,
+the update count and the step, all on the host), flushes and ``fsync``s it, then writes and ``fsync``s a
 ``FINALIZED`` marker holding the step and the payload's byte count, and
 only then renames the directory to ``<dir>/<n>/``. ``latest_step``
 announces a digit directory only when its marker parses, names that step
@@ -15,8 +15,8 @@ plus every ``keep_every``-th. Saving is synchronous.
 
 ``restore_jax_local`` reads the JAX package's local-npz checkpoints
 (``<dir>/<n>/state.npz`` keyed by the ``jax.tree_util.keystr`` paths of
-its ``TrainState``) through ``interop/from_jax.py``; it needs neither JAX
-nor ``ml_dtypes``. The JAX package's orbax checkpoints are not read:
+its ``TrainState``, the centers included) through ``interop/from_jax.py``;
+it needs neither JAX nor ``ml_dtypes``. The JAX package's orbax checkpoints are not read:
 orbax is not a dependency of the port (ROADMAP).
 """
 
@@ -36,6 +36,7 @@ from dinov3_tpu_torch.train.train_step import TrainState
 
 logger = logging.getLogger(LOGGER_NAME)
 
+FORMAT = 2  # 1: no center_state
 FINALIZED = "FINALIZED"
 PAYLOAD = "state.pt"
 JAX_PAYLOAD = "state.npz"
@@ -59,20 +60,24 @@ def state_payload(state: TrainState) -> dict:
         return {k: v.detach().to("cpu", copy=True) for k, v in sd.items()}
 
     return {
-        "format": 1,
+        "format": FORMAT,
         "step": int(state.step),
         "count": int(state.opt_state.count),
         "student": host(meta.student.state_dict()),
         "teacher": host(meta.teacher.state_dict()),
         "mu": host(dict(zip(names, state.opt_state.mu))),
         "nu": host(dict(zip(names, state.opt_state.nu))),
+        "center_state": host(state.center_state),
     }
 
 
 @torch.no_grad()
 def load_payload(state: TrainState, payload: dict) -> TrainState:
     """Copy a payload (``state_payload``'s layout, or the JAX bridge's)
-    into ``state``'s modules and moments in place; every name must match."""
+    into ``state``'s modules, moments and centers in place; every name must
+    match. A payload without centers (format 1: Sinkhorn-Knopp runs, which
+    never read them) keeps the initial ones, except under softmax
+    centering, where it raises."""
     meta = state.meta
     meta.student.load_state_dict(payload["student"], strict=True)
     meta.teacher.load_state_dict(payload["teacher"], strict=True)
@@ -85,6 +90,16 @@ def load_payload(state: TrainState, payload: dict) -> TrainState:
                            f"missing {sorted(missing)[:5]}, extra {sorted(extra)[:5]}")
         for n, t in zip(names, dst):
             t.copy_(src[n])
+    centers = payload.get("center_state")
+    if centers is None:
+        if meta.centering == "softmax_center":
+            raise KeyError("checkpoint holds no softmax-centering centers")
+    else:
+        if set(centers) != set(state.center_state):
+            raise KeyError(f"checkpoint centers {sorted(centers)} != "
+                           f"{sorted(state.center_state)}")
+        for k, t in state.center_state.items():
+            t.copy_(centers[k])
     state.opt_state.count = int(payload["count"])
     state.step = int(payload["step"])
     return state
@@ -177,7 +192,7 @@ class Checkpointer:
             raise FileNotFoundError(f"no finalized checkpoint under {self.directory}")
         path = os.path.join(self.directory, str(step), PAYLOAD)
         payload = torch.load(path, map_location="cpu", weights_only=True)
-        if payload.get("format") != 1:
+        if payload.get("format") not in (1, FORMAT):
             raise ValueError(f"{path}: not a checkpoint of this package")
         load_payload(state, payload)
         logger.info("restored checkpoint at step %d", step)

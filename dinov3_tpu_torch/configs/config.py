@@ -165,7 +165,9 @@ def load_config(
     if "batch_size_per_gpu" in cfg.train:
         cfg.train.batch_size_per_device = cfg.train.pop("batch_size_per_gpu")
     apply_dot_overrides(cfg, overrides)
-    return apply_scaling_rules_to_cfg(cfg, n_devices)
+    cfg = apply_scaling_rules_to_cfg(cfg, n_devices)
+    warn_accum_batch_tiling(cfg, n_devices)
+    return cfg
 
 
 def data_parallel_world(cfg: ConfigNode, n_devices: int) -> int:
@@ -212,10 +214,46 @@ def _wished(value, default_on: bool) -> bool:
     return bool(value)
 
 
+def streaming_targets_wished(cfg: ConfigNode) -> bool:
+    """``loss.streaming_targets``: auto/true (default) = the streaming
+    K-tiled CE (``losses/streaming.py``); false = materialized targets."""
+    st = (cfg.get("loss") or {}).get("streaming_targets", "auto")
+    if isinstance(st, str):
+        low = st.lower()
+        if low not in ("auto", "true", "false", "on", "off"):
+            raise ValueError(f"loss.streaming_targets must be auto/true/false, got {st!r}")
+        return low in ("auto", "true", "on")
+    return bool(st)
+
+
+def warn_accum_batch_tiling(cfg: ConfigNode, n_devices: int = 1,
+                            stacklevel: int = 2) -> list[str]:
+    """Warn while the config is still editable when ``optim.accum_steps``
+    does not divide the global image batch: the crop-major microbatch
+    split (``train/train_step.py split_microbatches``) needs equal image
+    subsets and raises ``ValueError`` at the step. (The JAX package also
+    warns about TPU sublane padding of the microbatch; that does not
+    apply on the card.) Returns the messages ([] when accumulation is off
+    or tiles)."""
+    a = int((cfg.get("optim") or {}).get("accum_steps", 1) or 1)
+    if a <= 1:
+        return []
+    b = global_batch_size(cfg, n_devices)
+    if b % a == 0:
+        return []
+    msg = (f"optim.accum_steps axis: accum_steps={a} does not divide the global "
+           f"image batch B={b} — the microbatch split "
+           f"(train/train_step.py split_microbatches) will raise. Pick "
+           f"accum_steps dividing B, or retune the batch.")
+    warnings.warn(msg, stacklevel=stacklevel + 1)
+    return [msg]
+
+
 def check_train_slice(cfg: ConfigNode) -> None:
     """Refuse what the training slice does not implement, naming the
     ROADMAP item where it waits; nothing falls back quietly. Also the
-    JAX meta-arch's own checks (local crops, iBOT head, mask ratios)."""
+    JAX meta-arch's own checks (local crops, iBOT head, mask ratios,
+    centering, accumulation steps)."""
     if cfg.crops.local_crops_number <= 0:
         raise ValueError("DINOv3 needs local crops (crops.local_crops_number > 0)")
     if not cfg.ibot.separate_head:
@@ -225,15 +263,13 @@ def check_train_slice(cfg: ConfigNode) -> None:
         raise ValueError("provide a valid ibot.mask_ratio_min_max")
     if cfg.optim.optimizer != "adamw":
         raise ValueError(f"unsupported optimizer {cfg.optim.optimizer!r}")
+    if cfg.train.centering not in ("sinkhorn_knopp", "softmax_center"):
+        raise ValueError(f"unknown centering {cfg.train.centering!r}")
+    if int((cfg.get("optim") or {}).get("accum_steps", 1) or 1) < 1:
+        raise ValueError(f"optim.accum_steps must be >= 1, got {cfg.optim.accum_steps}")
+    streaming_targets_wished(cfg)  # raises on a bad value
     s = cfg.student
     waits = [
-        (_wished((cfg.get("loss") or {}).get("streaming_targets", "auto"), True),
-         "loss.streaming_targets: the streaming prototype-axis targets wait "
-         "(ROADMAP M2); set loss.streaming_targets=false for the "
-         "materialized targets"),
-        (cfg.train.centering != "sinkhorn_knopp",
-         f"train.centering={cfg.train.centering!r}: softmax centering waits "
-         "(ROADMAP M2)"),
         (not _wished((cfg.get("model") or {}).get("crop_packing", "auto"), True),
          "model.crop_packing=false: the two-pass student oracle waits "
          "(ROADMAP M1)"),
@@ -244,20 +280,12 @@ def check_train_slice(cfg: ConfigNode) -> None:
             "pos_embed_rope_shift_coords", "pos_embed_rope_jitter_coords",
             "pos_embed_rope_rescale_coords")),
          "RoPE coordinate augmentation waits (ROADMAP M1)"),
-        (int((cfg.get("optim") or {}).get("accum_steps", 1) or 1) > 1,
-         "optim.accum_steps > 1: gradient accumulation waits (ROADMAP M4)"),
-        (bool(cfg.train.get("checkpointing")
-              or cfg.train.get("checkpointing_full")),
-         "train.checkpointing: activation checkpointing waits (ROADMAP M4)"),
         (bool(cfg.gram.use_loss), "gram.use_loss: the Gram loss waits "
          "(ROADMAP M2)"),
         (bool(cfg.distillation.enabled), "distillation waits (ROADMAP M10)"),
         (str((cfg.train.get("low_precision") or {}).get("arm", "bf16"))
          != "bf16" or bool(s.get("fp8_enabled")),
          "fp8/int8 matmuls wait (ROADMAP M9)"),
-        (str(cfg.compute_precision.get("target_dtype") or "fp32").lower()
-         not in ("fp32", "float32", "f32"),
-         "compute_precision.target_dtype other than fp32 waits (ROADMAP M2)"),
     ]
     for refused, msg in waits:
         if refused:

@@ -166,12 +166,11 @@ def keystr_path(key: str) -> tuple[str, ...]:
 def train_state_from_jax(flat: Mapping[str, Any]) -> dict:
     """Leaves of a JAX ``TrainState`` (``{keystr path: array}``) -> {"student":
     state_dict, "teacher": state_dict, "mu": {name: tensor}, "nu": {...},
-    "count": int, "step": int}, names those of ``SSLMetaArch.student``.
-    The scheduled AdamW keeps the schedule index (``opt_state.count``) and
-    Adam's bias-correction count (``opt_state.adam.count``) apart; the
-    port keeps one count for both, so they must agree. Softmax centers
-    (``center_state``) are not read: the port trains with Sinkhorn-Knopp
-    targets, which keep none. A Gram teacher or fp8/int8 amax rings are
+    "center_state": {"dino_center", "ibot_center"}, "count": int, "step":
+    int}, names those of ``SSLMetaArch.student``. The scheduled AdamW keeps
+    the schedule index (``opt_state.count``) and Adam's bias-correction
+    count (``opt_state.adam.count``) apart; the port keeps one count for
+    both, so they must agree. A Gram teacher or fp8/int8 amax rings are
     refused (ROADMAP M2, M9)."""
     tree: dict = {}
     for key, value in flat.items():
@@ -194,4 +193,6 @@ def train_state_from_jax(flat: Mapping[str, Any]) -> dict:
                                      "teacher": params["teacher"]})
     moments = meta_state_dicts_from_jax({"mu": opt["adam"]["mu"],
                                          "nu": opt["adam"]["nu"]})
-    return {**out, **moments, "count": count, "step": int(np.asarray(tree["step"]))}
+    centers = {k: _to_torch(v, False) for k, v in tree["center_state"].items()}
+    return {**out, **moments, "center_state": centers, "count": count,
+            "step": int(np.asarray(tree["step"]))}

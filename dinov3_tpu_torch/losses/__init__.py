@@ -1,12 +1,29 @@
-"""SSL losses with materialized teacher targets (``dinov3_tpu/losses``):
-Sinkhorn-Knopp centering, the DINO crop-pair cross-entropy, the iBOT
-masked-token cross-entropy and the KoLeo regularizer. Statistics and
+"""SSL losses (``dinov3_tpu/losses``): Sinkhorn-Knopp and softmax
+centering, the DINO crop-pair and iBOT masked-token cross-entropies over
+materialized targets or streamed K-tile by K-tile
+(``losses/streaming.py``), and the KoLeo regularizer. Statistics and
 reductions accumulate in fp32."""
 
-from dinov3_tpu_torch.losses.dino_loss import dino_pair_ce, pair_ce_to_loss
-from dinov3_tpu_torch.losses.ibot_loss import ibot_patch_loss_masked
+from dinov3_tpu_torch.losses.dino_loss import (
+    dino_pair_ce,
+    pair_ce_to_loss,
+    softmax_center_teacher,
+    update_center,
+)
+from dinov3_tpu_torch.losses.ibot_loss import (
+    ibot_patch_loss_from_parts,
+    ibot_patch_loss_masked,
+)
 from dinov3_tpu_torch.losses.koleo_loss import koleo_loss
-from dinov3_tpu_torch.losses.sinkhorn import sinkhorn_knopp
+from dinov3_tpu_torch.losses.sinkhorn import SinkhornFactors, sinkhorn_knopp
+from dinov3_tpu_torch.losses.streaming import (
+    choose_k_tile,
+    ibot_loss_from_spec,
+    pair_ce_from_spec,
+)
 
-__all__ = ["dino_pair_ce", "ibot_patch_loss_masked", "koleo_loss",
-           "pair_ce_to_loss", "sinkhorn_knopp"]
+__all__ = ["SinkhornFactors", "choose_k_tile", "dino_pair_ce",
+           "ibot_loss_from_spec", "ibot_patch_loss_from_parts",
+           "ibot_patch_loss_masked", "koleo_loss", "pair_ce_from_spec",
+           "pair_ce_to_loss", "sinkhorn_knopp", "softmax_center_teacher",
+           "update_center"]

@@ -3,8 +3,11 @@ only: ConvNeXt is not ported yet."""
 
 from __future__ import annotations
 
+import logging
+
 import torch
 
+from dinov3_tpu_torch.logging_utils import LOGGER_NAME
 from dinov3_tpu_torch.models.vision_transformer import (
     ARCHS,
     DinoVisionTransformer,
@@ -16,14 +19,16 @@ from dinov3_tpu_torch.ops.common import Policy, resolve_device
 
 def backbone_kwargs_from_cfg(cfg, *, teacher: bool = True) -> dict:
     """``student`` section -> ``DinoVisionTransformer`` kwargs. The teacher
-    (and serve) backbone is deterministic: no drop path. The student takes
-    ``student.drop_path_rate`` and ``drop_path_mode``. RoPE coordinate
+    (and serve) backbone is deterministic: no drop path, no activation
+    checkpointing. The student takes ``student.drop_path_rate`` and
+    ``drop_path_mode``, and ``remat_mode(cfg)``. RoPE coordinate
     augmentation is not ported (the recipes leave it null; the training
-    setup refuses it), and the TPU execution options (remat, scan,
-    sharding, kernel dispatch thresholds) do not apply."""
+    setup refuses it), and the TPU execution options (scan, sharding,
+    kernel dispatch thresholds) do not apply."""
     s = cfg.student
     policy = Policy.from_cfg(cfg.compute_precision)
     return dict(
+        remat="none" if teacher else remat_mode(cfg),
         patch_size=s.patch_size,
         drop_path_rate=0.0 if teacher else float(s.drop_path_rate),
         drop_path_mode=s.drop_path_mode,
@@ -49,6 +54,26 @@ def backbone_kwargs_from_cfg(cfg, *, teacher: bool = True) -> dict:
     )
 
 
+def remat_mode(cfg) -> str:
+    """The student's activation checkpointing, as the JAX package maps it:
+    ``train.checkpointing`` -> "blocks", ``train.checkpointing_full`` ->
+    "full", and ``parallel.remat`` other than "none" overrides both."""
+    train = cfg.train
+    remat = {False: "none", True: "blocks"}.get(train.get("checkpointing", False), "none")
+    if train.get("checkpointing_full", False):
+        remat = "full"
+    pr = str((cfg.get("parallel") or {}).get("remat", "none") or "none")
+    if pr not in ("none", "attn", "blocks", "full"):
+        raise ValueError(f"parallel.remat={pr!r}: expected none|attn|blocks|full")
+    if pr != "none":
+        remat = pr
+    if remat == "attn":
+        logging.getLogger(LOGGER_NAME).warning(
+            "remat=attn has no effect: K1 (the flash-attention kernel) never "
+            "materializes the [N, N] softmax state")
+    return remat
+
+
 def build_backbone(cfg, *, device="cuda", seed: int = 0) -> DinoVisionTransformer:
     """The configured (teacher/serve) ViT with a seeded random init, in the
     policy's parameter dtype, on ``device``. The init is drawn on the CPU
@@ -69,5 +94,5 @@ def build_backbone(cfg, *, device="cuda", seed: int = 0) -> DinoVisionTransforme
 
 __all__ = [
     "ARCHS", "DinoVisionTransformer", "backbone_kwargs_from_cfg",
-    "build_backbone", "vit_large", "vit_test",
+    "build_backbone", "remat_mode", "vit_large", "vit_test",
 ]

@@ -16,7 +16,7 @@ from __future__ import annotations
 import torch
 from torch import nn
 
-from dinov3_tpu_torch.ops.block import SelfAttentionBlock
+from dinov3_tpu_torch.ops.block import REMAT_MODES, SelfAttentionBlock, remat_forward
 from dinov3_tpu_torch.ops.common import canonical_dtype, trunc_normal_init
 from dinov3_tpu_torch.ops.layer_scale import LayerScale
 from dinov3_tpu_torch.ops.norms import LayerNorm, RMSNorm, make_norm_layer
@@ -65,9 +65,13 @@ class DinoVisionTransformer(nn.Module):
         pos_embed_rope_max_period: float | None = None,
         pos_embed_rope_normalize_coords: str = "separate",
         pos_embed_rope_dtype: str = "fp32",
+        remat: str = "none",
         dtype: torch.dtype = torch.bfloat16,
     ):
         super().__init__()
+        if remat not in REMAT_MODES:
+            raise ValueError(f"unknown remat mode {remat!r}; expected none|attn|blocks|full")
+        self.remat = remat
         self.patch_size = patch_size
         self.in_chans = in_chans
         self.embed_dim = embed_dim
@@ -183,9 +187,13 @@ class DinoVisionTransformer(nn.Module):
         prefix = self._prefix_table(tokens.dtype)
         return torch.cat([prefix[None].expand(B, -1, -1), tokens], dim=1), (h, w)
 
-    def _run_blocks(self, x, rope, seg=None, plan=None):
+    def _run_blocks(self, x, rope, seg=None, plan=None, train=False):
+        """The block stack; a training call that builds a graph runs each
+        block under ``self.remat``'s activation checkpointing."""
+        remat = self.remat if train and torch.is_grad_enabled() else "none"
         for i, blk in enumerate(self.blocks):
-            x = blk(x, rope=rope, seg=seg, plan=plan_layer_slice(plan, i))
+            x = remat_forward(blk, remat)(x, rope=rope, seg=seg,
+                                          plan=plan_layer_slice(plan, i))
         return x
 
     def _check_plan(self, train: bool, plan) -> dict | None:
@@ -233,7 +241,7 @@ class DinoVisionTransformer(nn.Module):
             return self._packed_forward(x, masks, local_crops, plan, train)
         tokens, (h, w) = self._embed(x, masks)
         out = self._run_blocks(tokens, self._rope_table(h, w, x.device),
-                               plan=plan)
+                               plan=plan, train=train)
         x_cls_reg, x_patch = self._final_norms(out, crop_kind="global",
                                                train=train)
         return {
@@ -266,7 +274,7 @@ class DinoVisionTransformer(nn.Module):
         if self.pos_embed_type == "rope":
             rope = rope_packed_rows(self._rope_table(hg, wg, x.device),
                                     self._rope_table(hl, wl, x.device), layout)
-        out = self._run_blocks(tokens, rope, seg=seg, plan=plan)
+        out = self._run_blocks(tokens, rope, seg=seg, plan=plan, train=train)
         g_rows, p_rows = split_packed_output(out, layout)
         l_tok = p_rows[:, : layout.k * layout.seq_local]
         l_prefix = l_tok.reshape(layout.n_packed_rows * layout.k,

@@ -7,12 +7,23 @@ step's drop-path plan (``rng/plan.py``): ``{"idx": [2, keep]}`` runs each
 branch on its kept rows only (``subset_residual_planned``), with the rows'
 own RoPE tables and segment ids gathered alongside; ``{"keep": [2, B]}``
 masks whole rows (``mask_residual_planned``).
+
+``remat_forward`` runs a block under activation checkpointing, the port
+of ``remat_block_cls``.
 """
 
 from __future__ import annotations
 
+import functools
+
 import torch
 from torch import nn
+from torch.utils.checkpoint import (
+    CheckpointPolicy,
+    checkpoint,
+    create_selective_checkpoint_contexts,
+    noop_context_fn,
+)
 
 from dinov3_tpu_torch.ops.attention import SelfAttention
 from dinov3_tpu_torch.ops.drop_path import (
@@ -70,3 +81,39 @@ class SelfAttentionBlock(nn.Module):
                                   self.drop_path_rate)
         return mask_residual_planned(x, mlp_branch(x), plan["keep"][1],
                                      self.drop_path_rate)
+
+
+REMAT_MODES = ("none", "attn", "blocks", "full")
+# the weight matmuls of a block (qkv, proj, fc1, fc2): ``dense`` reaches
+# them as 2-D products; attention's products run inside K1-K3
+_WEIGHT_MATMULS = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default)
+
+
+def _save_weight_matmuls(ctx, op, *args, **kwargs):
+    return (CheckpointPolicy.MUST_SAVE if op in _WEIGHT_MATMULS
+            else CheckpointPolicy.PREFER_RECOMPUTE)
+
+
+def remat_forward(block: nn.Module, remat: str):
+    """``block``'s forward under activation checkpointing
+    (``dinov3_tpu/ops/block.py remat_block_cls``), for calls that build a
+    graph: "full" saves only the block's inputs and recomputes the whole
+    block in the backward; "blocks" also saves the outputs of the weight
+    matmuls (``dots_with_no_batch_dims_saveable``) and recomputes the
+    rest, K1 and K4 included; "none" and "attn" return the block itself
+    ("attn" spares the dense attention's [N, N] probabilities in the
+    reference, which K1 never materializes). The blocks draw no randomness
+    (drop path comes from the step's plan), so no RNG state is kept."""
+    if remat not in REMAT_MODES:
+        raise ValueError(f"unknown remat mode {remat!r}; expected none|attn|blocks|full")
+    if remat in ("none", "attn"):
+        return block
+    context_fn = (functools.partial(create_selective_checkpoint_contexts,
+                                    _save_weight_matmuls)
+                  if remat == "blocks" else noop_context_fn)
+
+    def run(x, **kwargs):
+        return checkpoint(block, x, use_reentrant=False, preserve_rng_state=False,
+                          context_fn=context_fn, **kwargs)
+
+    return run

@@ -9,7 +9,8 @@ packed pass's 2B + P mixed rows, so a dropped packed row drops its k local
 crops together, as in the reference.
 
 The generator is an explicit ``torch.Generator`` seeded from
-``(seed, iteration)``, so a step's draws are a pure function of both. Its
+``(seed, iteration)`` (with accumulation, ``(seed, iteration,
+microbatch)``), so a step's draws are a pure function of them. Its
 numbers are not JAX's: tests hand the JAX plan across as numpy instead.
 """
 
@@ -21,9 +22,13 @@ import torch
 from dinov3_tpu_torch.ops.drop_path import resolve_drop_path, subset_keep_count
 
 
-def step_generator(seed: int, iteration: int) -> torch.Generator:
-    """A CPU generator keyed by (seed, iteration)."""
-    state = np.random.SeedSequence([int(seed), int(iteration)]).generate_state(2)
+def step_generator(seed: int, iteration: int,
+                   microbatch: int | None = None) -> torch.Generator:
+    """A CPU generator keyed by (seed, iteration), or by (seed, iteration,
+    microbatch) for microbatch j of an accumulated step (the reference's
+    ``fold_in(fold_in(key, iteration), j)``)."""
+    key = [int(seed), int(iteration)] + ([] if microbatch is None else [int(microbatch)])
+    state = np.random.SeedSequence(key).generate_state(2)
     return torch.Generator().manual_seed(
         int(state[0]) << 32 | int(state[1]))
 

@@ -16,6 +16,7 @@ from dinov3_tpu_torch.train.train_step import (
     make_train_launch,
     make_train_step,
     packed_layout,
+    split_microbatches,
 )
 
 
@@ -42,12 +43,16 @@ def build_train_setup(cfg, example_batch: dict, *, device="cuda",
     weights are drawn on the CPU from ``seed``, so they do not depend on
     the device; the step's drop-path plans are keyed by (seed,
     iteration). ``example_batch`` is checked against the slice's crop
-    geometry (local crops must pack at least 2 to a global row).
-    ``n_blocks`` cuts the configured depth (None keeps it)."""
+    geometry (local crops must pack at least 2 to a global row) and
+    against ``optim.accum_steps`` (it must divide the image batch; raises
+    ``ValueError``). ``n_blocks`` cuts the configured depth (None keeps
+    it)."""
     dev = resolve_device(device)
     meta = SSLMetaArch(cfg, seed=seed, n_blocks=n_blocks)
-    # the packed layout is fixed by the crop sizes: fail here, not mid-step
-    layout = packed_layout(cfg, example_batch)
+    accum = int(cfg.optim.get("accum_steps", 1) or 1)
+    # the packed layout is fixed by the crop sizes and the microbatch
+    # split by accum_steps: fail here, not mid-step
+    layout = packed_layout(cfg, split_microbatches(example_batch, accum)[0])
     if layout.k < 2:
         raise ValueError(
             f"crop packing needs k >= 2 local sequences per global row "
@@ -63,5 +68,6 @@ def build_train_setup(cfg, example_batch: dict, *, device="cuda",
     state = TrainState(meta=meta, opt_state=optimizer.init_state(meta.student))
     return TrainSetup(cfg=cfg, meta=meta, schedules=schedules,
                       optimizer=optimizer, state=state,
-                      step_fn=make_train_step(optimizer, seed=seed),
-                      launch_fn=make_train_launch(optimizer, seed=seed))
+                      step_fn=make_train_step(optimizer, seed=seed, accum_steps=accum),
+                      launch_fn=make_train_launch(optimizer, seed=seed,
+                                                  accum_steps=accum))

@@ -1,7 +1,8 @@
 """DINOv3 SSL meta-architecture on one device
-(``dinov3_tpu/train/ssl_meta_arch.py``, the configuration of the training
-slice: crop-packed student, Sinkhorn-Knopp teacher targets materialized,
-DINO + iBOT + KoLeo losses).
+(``dinov3_tpu/train/ssl_meta_arch.py``: crop-packed student, teacher
+targets by Sinkhorn-Knopp or softmax centering, streamed K-tile by K-tile
+(``loss.streaming_targets``, the default) or materialized, DINO + iBOT +
+KoLeo losses).
 
 ``SSLMetaArch`` is an ``nn.Module`` holding the student and the EMA
 teacher, each an ``nn.ModuleDict`` of ``backbone`` (the ViT),
@@ -22,16 +23,18 @@ import copy
 import torch
 from torch import nn
 
-from dinov3_tpu_torch.configs.config import check_train_slice
+from dinov3_tpu_torch.configs.config import check_train_slice, streaming_targets_wished
 from dinov3_tpu_torch.losses import (
-    dino_pair_ce,
-    ibot_patch_loss_masked,
+    ibot_loss_from_spec,
     koleo_loss,
+    pair_ce_from_spec,
     pair_ce_to_loss,
     sinkhorn_knopp,
+    softmax_center_teacher,
+    update_center,
 )
 from dinov3_tpu_torch.models import ARCHS, backbone_kwargs_from_cfg
-from dinov3_tpu_torch.ops.common import Policy
+from dinov3_tpu_torch.ops.common import Policy, canonical_dtype
 from dinov3_tpu_torch.ops.dino_head import DINOHead
 from dinov3_tpu_torch.train.optimizer import ema_
 
@@ -58,6 +61,15 @@ class SSLMetaArch(nn.Module):
                 f"{sorted(ARCHS)}")
         self.cfg = cfg
         self.n_local_crops = cfg.crops.local_crops_number
+        self.centering = cfg.train.centering
+        if self.centering not in ("sinkhorn_knopp", "softmax_center"):
+            raise ValueError(f"unknown centering {self.centering!r}")
+        # the [*, K] target storage (None: fp32); reductions stay fp32
+        self.target_dtype = canonical_dtype(
+            cfg.compute_precision.get("target_dtype") or None)
+        # streaming K-tiled CE (losses/streaming.py) or materialized targets
+        self.streaming_targets = streaming_targets_wished(cfg)
+        self.loss_k_tile = int((cfg.get("loss") or {}).get("k_tile") or 8192)
         dtype = Policy.from_cfg(cfg.compute_precision).compute_dtype
         depth = {} if n_blocks is None else {"n_blocks": n_blocks}
         backbone = ARCHS[arch](**backbone_kwargs_from_cfg(cfg, teacher=False), **depth)
@@ -100,35 +112,79 @@ class SSLMetaArch(nn.Module):
         idx = mask_indices.long()[..., None].expand(-1, -1, patch_tokens.shape[-1])
         return torch.gather(patch_tokens, 1, idx)
 
+    def init_state(self, device=None) -> dict:
+        """The softmax-centering EMA centers, fp32 zeros (kept, unused,
+        under Sinkhorn-Knopp, as in the reference)."""
+        kw = dict(dtype=torch.float32, device=device)
+        return {"dino_center": torch.zeros(1, self.cfg.dino.head_n_prototypes, **kw),
+                "ibot_center": torch.zeros(1, self.cfg.ibot.head_n_prototypes, **kw)}
+
     @torch.no_grad()
-    def get_teacher_output(self, batch: dict, teacher_temp: float) -> dict:
-        """The EMA teacher over the global crops, then its targets."""
+    def get_teacher_output(self, batch: dict, teacher_temp: float, state: dict):
+        """The EMA teacher over the global crops, then its targets:
+        (targets, new center state)."""
         out = self.teacher["backbone"](batch["global_crops"])
         return self.teacher_targets_from_features(
             out["x_norm_clstoken"], out["x_norm_patchtokens"], batch,
-            teacher_temp)
+            teacher_temp, state)
 
     @torch.no_grad()
     def teacher_targets_from_features(self, cls, patches, batch: dict,
-                                      teacher_temp: float) -> dict:
-        """Heads -> Sinkhorn-Knopp targets, from cls [2B, D] and patches
-        [2B, T, D]: cls_target [2, B, K], masked_target [2B*M, K'] (zero
-        rows at padding), both fp32."""
+                                      teacher_temp: float, state: dict):
+        """Heads -> centering -> target specs, from cls [2B, D] and patches
+        [2B, T, D]. Returns ({"cls_target", "masked_target", ...}, new
+        state). Specs (``losses/streaming.py``): {"kind": "probs"} holds
+        materialized [2, B, K] / [2B*M, K'] targets (zero rows at padding);
+        {"kind": "sinkhorn"} the Sinkhorn factors; {"kind":
+        "softmax_center"} the raw logits, the incoming center and the
+        temperature. The centers' EMA reads the raw logits on both paths."""
         n_g = 2
         B = cls.shape[0] // n_g
-        cls_logits = self.teacher["dino_head"](cls)
+        cls_logits = self.teacher["dino_head"](cls)                       # [2B, K]
         masked = self._gather_masked(patches, batch["mask_indices"])
         masked_logits = self.teacher["ibot_head"](masked.reshape(-1, cls.shape[-1]))
         valid = batch["mask_valid"].reshape(-1)
-        cls_t = sinkhorn_knopp(cls_logits, teacher_temp)
-        masked_t = sinkhorn_knopp(masked_logits, teacher_temp,
-                                  row_weights=valid.float())
+        new_state = dict(state)
+        tgt, stream = self.target_dtype, self.streaming_targets
+        if self.centering == "sinkhorn_knopp":
+            cls_t = sinkhorn_knopp(cls_logits, teacher_temp, storage_dtype=tgt,
+                                   return_factors=stream)
+            masked_t = sinkhorn_knopp(masked_logits, teacher_temp,
+                                      row_weights=valid.float(), storage_dtype=tgt,
+                                      return_factors=stream)
+            if stream:
+                cls_target = {"kind": "sinkhorn", "factors": cls_t}
+                masked_target = {"kind": "sinkhorn", "factors": masked_t}
+            else:
+                cls_target = {"kind": "probs", "probs": cls_t.reshape(n_g, B, -1)}
+                masked_target = {"kind": "probs", "probs": masked_t}
+        else:
+            if stream:
+                # padding rows are weighted out by mask_weights in the loss
+                cls_target = {"kind": "softmax_center",
+                              "logits": cls_logits.reshape(n_g, B, -1),
+                              "center": state["dino_center"], "temp": teacher_temp}
+                masked_target = {"kind": "softmax_center", "logits": masked_logits,
+                                 "center": state["ibot_center"], "temp": teacher_temp}
+            else:
+                cls_p = softmax_center_teacher(cls_logits, state["dino_center"],
+                                               teacher_temp, storage_dtype=tgt)
+                masked_p = softmax_center_teacher(
+                    masked_logits, state["ibot_center"], teacher_temp,
+                    storage_dtype=tgt) * valid[:, None].to(tgt or masked_logits.dtype)
+                cls_target = {"kind": "probs", "probs": cls_p.reshape(n_g, B, -1)}
+                masked_target = {"kind": "probs", "probs": masked_p}
+            new_state["dino_center"] = update_center(state["dino_center"], cls_logits)
+            w = valid.float()[:, None]
+            masked_mean = (masked_logits * w).sum(dim=0, keepdim=True)
+            masked_mean = masked_mean / w.sum().clamp(min=1.0)
+            new_state["ibot_center"] = state["ibot_center"] * 0.9 + masked_mean * 0.1
         return {
             "cls_pre_head": cls.reshape(n_g, B, -1),
             "patch_pre_head": patches,
-            "cls_target": cls_t.reshape(n_g, B, -1),
-            "masked_target": masked_t,
-        }
+            "cls_target": cls_target,
+            "masked_target": masked_target,
+        }, new_state
 
     def get_student_output(self, batch: dict, plan: dict | None):
         """One crop-packed backbone pass over global and local crops, then
@@ -177,8 +233,8 @@ class SSLMetaArch(nn.Module):
         g_rows = student_global["cls_after_head"]
         B = g_rows.shape[1]
         # one pair-CE over every student crop against the teacher targets
-        pair = dino_pair_ce(torch.cat([g_rows, student_local["cls_after_head"]]),
-                            teacher_global["cls_target"])
+        pair = pair_ce_from_spec(torch.cat([g_rows, student_local["cls_after_head"]]),
+                                 teacher_global["cls_target"], k_tile=self.loss_k_tile)
         dino_local = pair_ce_to_loss(pair[n_g:], B)
         dino_global = pair_ce_to_loss(pair[:n_g], B, ignore_diagonal=ignore_diag)
         loss_dict["dino_local_crops_loss"] = dino_local
@@ -192,24 +248,30 @@ class SSLMetaArch(nn.Module):
                   for c in student_global["cls_pre_head"]) / n_g
         loss_dict["koleo_loss"] = kol
         total = total + cfg.dino.koleo_loss_weight * n_g * kol
-        ibot = ibot_patch_loss_masked(
+        ibot = ibot_loss_from_spec(
             student_global["masked_patch_after_head"].reshape(
                 -1, cfg.ibot.head_n_prototypes),
             teacher_global["masked_target"],
-            batch["mask_weights"].reshape(-1), n_images=batch["masks"].shape[0])
+            batch["mask_weights"].reshape(-1), n_images=batch["masks"].shape[0],
+            k_tile=self.loss_k_tile)
         loss_dict["ibot_loss"] = ibot
         total = total + cfg.ibot.loss_weight * ibot
         loss_dict["total_loss"] = total
         return total, loss_dict
 
     def forward(self, batch: dict, *, teacher_temp: float, iteration: int = 0,
-                plan: dict | None = None):
-        """(total loss, {loss name: scalar}) of one batch; gradients reach
-        only the student. ``plan``: the packed pass's drop-path plan."""
-        teacher_global = self.get_teacher_output(batch, teacher_temp)
+                plan: dict | None = None, state: dict | None = None):
+        """(total loss, {loss name: scalar}, new center state) of one
+        batch; gradients reach only the student. ``plan``: the packed
+        pass's drop-path plan; ``state``: the incoming centers
+        (``init_state()`` when None)."""
+        if state is None:
+            state = self.init_state(batch["global_crops"].device)
+        teacher_global, new_state = self.get_teacher_output(batch, teacher_temp, state)
         student_global, student_local = self.get_student_output(batch, plan)
-        return self.compute_losses(teacher_global, student_global,
-                                   student_local, batch, iteration)
+        total, loss_dict = self.compute_losses(teacher_global, student_global,
+                                               student_local, batch, iteration)
+        return total, loss_dict, new_state
 
     @torch.no_grad()
     def update_ema(self, momentum: float) -> None:

@@ -2,8 +2,7 @@
 
     python -m dinov3_tpu_torch.train.train \\
         --config-file configs/train/vitl16_im1k.yaml --output-dir build/run \\
-        --max-iterations 4 --benchmark 2 train.batch_size_per_device=32 \\
-        loss.streaming_targets=false data.backend=synthetic \\
+        --max-iterations 4 --benchmark 2 data.backend=synthetic \\
         checkpointing.period=2
 
 ``MODEL.DEVICE=cpu`` runs on the CPU with the kernels' plain versions; any
@@ -186,6 +185,17 @@ def build_data_iterator(cfg, batch_size: int, start_iter: int = 0,
     raise ValueError(f"unknown data backend {backend!r}")
 
 
+def resolved_engine(setup) -> dict:
+    """What the step resolved from the config: the target engine
+    (streaming or materialized), the centering, the K-tile cap, the
+    student's activation checkpointing and the accumulation steps."""
+    meta = setup.meta
+    return {"targets": "streaming" if meta.streaming_targets else "materialized",
+            "centering": meta.centering, "k_tile": meta.loss_k_tile,
+            "remat": meta.student["backbone"].remat,
+            "accum_steps": int(setup.cfg.optim.get("accum_steps", 1) or 1)}
+
+
 class _GcTimes:
     """Times the collector's passes while installed (``gc.callbacks``)."""
 
@@ -231,6 +241,10 @@ def do_train(cfg, args) -> dict:
         setup = build_train_setup(cfg, first, device=device, seed=cfg.train.seed)
         logger.info("device %s | batch %d | setup %.1f s", device, B,
                     time.perf_counter() - t0)
+        engine = resolved_engine(setup)
+        logger.info("targets %s (%s, k_tile %d) | remat %s | accum_steps %d",
+                    engine["targets"], engine["centering"], engine["k_tile"],
+                    engine["remat"], engine["accum_steps"])
         if args.self_check:
             from dinov3_tpu_torch.train.self_check import run_self_check
 
@@ -240,7 +254,7 @@ def do_train(cfg, args) -> dict:
                     "launches": {k: kern.launches for k, kern in KERNELS.items()}}
 
         state = setup.state
-        result: dict = {"start_iteration": start_iter}
+        result: dict = {"start_iteration": start_iter, **engine}
         if latest is not None:
             t_res = time.perf_counter()
             state = ckpt.restore(state)

@@ -1,8 +1,9 @@
 """The SSL training step (``dinov3_tpu/train/train_step.py``
-``make_train_step``, ``optim.accum_steps=1``): teacher forward and
-targets -> crop-packed student forward -> losses -> student backward ->
-per-submodel clip, scheduled AdamW and the teacher EMA from the updated
-student (``train/optimizer.py``).
+``make_train_step``): teacher forward and targets -> crop-packed student
+forward -> losses -> student backward -> per-submodel clip, scheduled
+AdamW and the teacher EMA from the updated student (``train/optimizer.py``).
+With ``optim.accum_steps`` > 1 the forward and backward run once per
+microbatch (``split_microbatches``) before the one update.
 
 PyTorch modules own their parameters, so the state is updated in place
 and handed back: ``step(state, batch, scalars, plan=None) -> (state,
@@ -30,6 +31,14 @@ class TrainState:
     meta: SSLMetaArch      # holds the student and the EMA teacher
     opt_state: AdamWState
     step: int = 0
+    # softmax-centering EMA centers {"dino_center", "ibot_center"} (fp32
+    # [1, K]); None: meta.init_state() on the student's device
+    center_state: dict | None = None
+
+    def __post_init__(self):
+        if self.center_state is None:
+            self.center_state = self.meta.init_state(
+                next(self.meta.student.parameters()).device)
 
 
 def put_batch(batch: dict, device) -> dict:
@@ -60,6 +69,39 @@ class StepMetrics:
         return dict(zip(self.names, self.values.tolist()))
 
 
+def split_microbatches(batch: dict, accum_steps: int) -> list[dict]:
+    """A crop-major batch -> ``accum_steps`` microbatches, each itself a
+    crop-major batch of all crops of B / accum_steps images
+    (``dinov3_tpu/train/train_step.py split_microbatches``, unstacked).
+
+    Every leaf is [k * B, ...] with k its crop multiplicity (2 for the
+    global-crop leaves, n_local for the local crops), stacked crop by
+    crop; each regroups as (k, accum, B / accum, ...) with the accum axis
+    moved out front, so microbatch j holds image subset j of every crop.
+    numpy arrays or tensors; 0-d leaves pass to every microbatch. Raises
+    ``ValueError`` when accum_steps does not divide B."""
+    if accum_steps <= 1:
+        return [batch]
+    b = batch["global_crops"].shape[0] // 2
+
+    def split(x):
+        if getattr(x, "ndim", 0) == 0:
+            return [x] * accum_steps
+        n = x.shape[0]
+        if n % b or b % accum_steps:
+            raise ValueError(
+                f"optim.accum_steps={accum_steps} cannot tile a batch leaf of "
+                f"leading dim {n} (image batch {b}); pick accum_steps dividing "
+                f"the per-step image batch.")
+        k = n // b
+        x = x.reshape((k, accum_steps, b // accum_steps) + tuple(x.shape[1:]))
+        x = x.movedim(1, 0) if torch.is_tensor(x) else np.moveaxis(x, 1, 0)
+        return list(x.reshape((accum_steps, k * (b // accum_steps)) + tuple(x.shape[3:])))
+
+    parts = {k: split(v) for k, v in batch.items()}
+    return [{k: v[j] for k, v in parts.items()} for j in range(accum_steps)]
+
+
 def packed_layout(cfg, batch: dict):
     """The packed student pass's layout for this batch's crop shapes."""
     p = cfg.student.patch_size
@@ -72,49 +114,86 @@ def packed_layout(cfg, batch: dict):
         n_prefix=n_prefix)
 
 
-def make_train_launch(optimizer: ScheduledAdamW, seed: int = 0):
+def make_train_launch(optimizer: ScheduledAdamW, seed: int = 0,
+                      accum_steps: int = 1):
     """Returns ``launch(state, batch, scalars, plan=None) -> (state,
     StepMetrics)``: the step, queued on the device with no host read.
 
     ``scalars``: {"teacher_temp", "momentum"} of this iteration
     (``TrainSetup.scalars``). ``plan``: the packed pass's drop-path plan
-    (torch or numpy arrays, e.g. the JAX plan's ``["packed"]``); when it
-    is given the step draws nothing, else it draws its own from a
-    generator keyed by (seed, iteration)."""
+    (torch or numpy arrays, e.g. the JAX plan's ``["packed"]``), or with
+    ``accum_steps`` > 1 a list of one plan per microbatch; when it is
+    given the step draws nothing, else it draws its own from a generator
+    keyed by (seed, iteration), or by (seed, iteration, j) for microbatch
+    j.
+
+    ``accum_steps`` > 1 (``optim.accum_steps``): for each microbatch of
+    ``split_microbatches``, the teacher, targets, student forward and
+    losses, then ``backward()`` of loss_j / accum_steps into ``.grad``;
+    after the loop one clip + AdamW + EMA. Loss terms and centers are the
+    microbatch means, and every microbatch centers with the same incoming
+    state, as in the reference. The reference differentiates one program
+    that rematerializes each microbatch (``jax.checkpoint`` inside a
+    scan); a backward per microbatch gives the same numbers (up to the
+    order of the gradient sums) with live activations one microbatch deep,
+    without recomputing."""
+    if accum_steps < 1:
+        raise ValueError(f"optim.accum_steps must be >= 1, got {accum_steps}")
 
     def launch(state: TrainState, batch: dict, scalars: dict, plan=None):
         meta = state.meta
         device = next(meta.student.parameters()).device
-        batch = put_batch(batch, device)
-        if plan is None:
-            plan = packed_pass_plan(
-                step_generator(seed, state.step), meta.student["backbone"].n_blocks,
-                packed_layout(meta.cfg, batch).rows_total,
-                meta.student["backbone"].drop_path_rate,
-                meta.student["backbone"].drop_path_mode)
-        plan = plan_to_device(plan, device)
+        micro = split_microbatches(put_batch(batch, device), accum_steps)
+        if isinstance(plan, (list, tuple)):
+            plans = list(plan)
+        elif accum_steps == 1:
+            plans = [plan]
+        elif plan is None:
+            plans = [None] * accum_steps
+        else:
+            raise ValueError("with optim.accum_steps > 1, pass one plan per microbatch")
+        if len(plans) != accum_steps:
+            raise ValueError(f"{len(plans)} plans for {accum_steps} microbatches")
+        bb = meta.student["backbone"]
+        temp = float(scalars["teacher_temp"])
         meta.student.zero_grad(set_to_none=True)
-        total, loss_dict = meta(batch, teacher_temp=float(scalars["teacher_temp"]),
-                                iteration=state.step, plan=plan)
-        total.backward()
+        terms, centers = [], []
+        for j, (mb, p) in enumerate(zip(micro, plans)):
+            if p is None:
+                p = packed_pass_plan(
+                    step_generator(seed, state.step, None if accum_steps == 1 else j),
+                    bb.n_blocks, packed_layout(meta.cfg, mb).rows_total,
+                    bb.drop_path_rate, bb.drop_path_mode)
+            total, loss_dict, new_centers = meta(
+                mb, teacher_temp=temp, iteration=state.step,
+                plan=plan_to_device(p, device), state=state.center_state)
+            (total if accum_steps == 1 else total / accum_steps).backward()
+            terms.append(torch.stack([v.detach().float() for v in loss_dict.values()]))
+            centers.append(new_centers)
         norms = optimizer.update(meta.student, meta.teacher, state.opt_state,
                                  float(scalars["momentum"]))
         meta.student.zero_grad(set_to_none=True)
         state.step += 1
+        if accum_steps == 1:
+            state.center_state = centers[0]
+            values = terms[0]
+        else:
+            state.center_state = {k: torch.stack([c[k] for c in centers]).mean(0)
+                                  for k in centers[0]}
+            values = torch.stack(terms).mean(0)
         names = list(loss_dict) + [f"grad_norm/{k}" for k in norms]
-        values = torch.stack([v.detach().float() for v in loss_dict.values()]
-                             + [v.float() for v in norms.values()])
+        values = torch.cat([values, torch.stack([v.float() for v in norms.values()])])
         return state, StepMetrics(names, values)
 
     return launch
 
 
-def make_train_step(optimizer: ScheduledAdamW, seed: int = 0):
+def make_train_step(optimizer: ScheduledAdamW, seed: int = 0, accum_steps: int = 1):
     """Returns ``step(state, batch, scalars, plan=None) -> (state,
     metrics)``: ``make_train_launch``'s step followed by its one read;
     ``metrics`` holds the loss terms and the per-submodel pre-clip
     gradient norms as floats."""
-    launch = make_train_launch(optimizer, seed)
+    launch = make_train_launch(optimizer, seed, accum_steps)
 
     def step(state: TrainState, batch: dict, scalars: dict, plan=None):
         state, metrics = launch(state, batch, scalars, plan)

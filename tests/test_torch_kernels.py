@@ -821,3 +821,41 @@ def test_layernorm_bwd_kernel_matches_plain(cuda_device, R, D, dtype, pdtype):
         if pdtype == "bfloat16":
             tol += float(bf16_ulp(np.abs(want).max()))
         np.testing.assert_allclose(_to_np(got), want, atol=tol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["blocks", "full"])
+def test_student_block_under_remat_relaunches_k1_k4_and_keeps_grads(cuda_device, mode):
+    """One ViT-L student block (width 1024, 16 heads, bf16 compute, fp32
+    masters) on packed rows with segment ids, under activation
+    checkpointing: the backward launches K1 once more and K4 twice more
+    (the recompute), and every gradient is the no-remat block's, bit for
+    bit (the same kernels on the same inputs)."""
+    from dinov3_tpu_torch.ops.block import SelfAttentionBlock, remat_forward
+
+    torch.manual_seed(0)
+    blk = SelfAttentionBlock(1024, 16, layerscale_init=1.0,
+                             dtype=torch.bfloat16).to(cuda_device)
+    R, N = 8, 197
+    x0 = torch.randn(R, N, 1024, device=cuda_device)
+    seg = torch.from_numpy(_seg(N, R, N, 3)).to(cuda_device)
+    runs = {}
+    for m in ("none", mode):
+        x = x0.clone().requires_grad_()
+        before = {k: kern.launches for k, kern in
+                  (("K1", FLASH_FWD), ("K4", LAYERNORM_FWD), ("K2", FLASH_BWD_DQ))}
+        out = remat_forward(blk, m)(x, seg=seg)
+        fwd = {"K1": FLASH_FWD.launches - before["K1"],
+               "K4": LAYERNORM_FWD.launches - before["K4"]}
+        out.float().square().mean().backward()
+        torch.cuda.synchronize()
+        runs[m] = ({"K1": FLASH_FWD.launches - before["K1"],
+                    "K4": LAYERNORM_FWD.launches - before["K4"],
+                    "K2": FLASH_BWD_DQ.launches - before["K2"]}, fwd,
+                   [x.grad] + [p.grad.clone() for p in blk.parameters()])
+        blk.zero_grad(set_to_none=True)
+    assert runs["none"][1] == runs[mode][1] == {"K1": 1, "K4": 2}
+    assert runs["none"][0] == {"K1": 1, "K4": 2, "K2": 1}
+    assert runs[mode][0] == {"K1": 2, "K4": 4, "K2": 1}
+    for a, b in zip(runs[mode][2], runs["none"][2]):
+        assert torch.equal(a, b)

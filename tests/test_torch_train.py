@@ -410,8 +410,8 @@ def test_meta_forward_and_every_student_grad_match_jax(world):
     (jtotal, jd), jgrads = jax.jit(jax.value_and_grad(loss, has_aux=True))(
         params["student"])
     tmeta.student.zero_grad(set_to_none=True)
-    total, d = tmeta(put_batch(world["batch"], "cpu"), teacher_temp=0.07,
-                     plan=plan_to_device(plan, "cpu"))
+    total, d, _ = tmeta(put_batch(world["batch"], "cpu"), teacher_temp=0.07,
+                        plan=plan_to_device(plan, "cpu"))
     total.backward()
     for k in LOSSES:
         np.testing.assert_allclose(float(d[k]), float(jd[k]), rtol=1e-5,
@@ -519,10 +519,7 @@ def test_build_train_setup_runs_a_step_and_refuses_the_cuts(world):
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="cuda"):
             build_train_setup(tcfg, batch)  # the default device is the card
-    for bad, err in (("loss.streaming_targets=true", NotImplementedError),
-                     ("train.centering=softmax_center", NotImplementedError),
-                     ("model.crop_packing=false", NotImplementedError),
-                     ("optim.accum_steps=2", NotImplementedError),
+    for bad, err in (("model.crop_packing=false", NotImplementedError),
                      ("gram.use_loss=true", NotImplementedError),
                      ("student.pos_embed_rope_jitter_coords=1.1",
                       NotImplementedError),

@@ -36,6 +36,12 @@ import numpy as np
 import pytest
 import torch
 
+# imported here, at collection: importing orbax (which the JAX package's
+# checkpoint module does) puts the interpreter's 375 start-up objects
+# back into the collector's permanent generation, which
+# ``_process_state_unchanged`` would blame on whichever test imported it
+# first after a ``do_train`` had unfrozen them
+import dinov3_tpu.checkpoint  # noqa: F401
 from test_torch_train import LOSSES, SMOL, _jax_plan, _np, cfgs
 
 REPO = Path(__file__).resolve().parent.parent
@@ -78,13 +84,14 @@ def _process_state_unchanged():
     assert gc.get_freeze_count() <= frozen
 
 
-def run_cli(out_dir, *args, expect_rc=0) -> dict:
-    """``python -m dinov3_tpu_torch.train.train`` in a child process; its
-    result is the last line of its output."""
+def run_cli(out_dir, *args, expect_rc=0, extra=()) -> dict:
+    """``python -m dinov3_tpu_torch.train.train`` in a child process (the
+    ``CLI`` overrides, then ``extra``); its result is the last line of its
+    output."""
     env = dict(os.environ, OMP_NUM_THREADS="2")
     proc = subprocess.run(
         [sys.executable, "-m", "dinov3_tpu_torch.train.train",
-         "--output-dir", str(out_dir), *map(str, args), *CLI],
+         "--output-dir", str(out_dir), *map(str, args), *CLI, *extra],
         cwd=REPO, capture_output=True, text=True, timeout=CLI_TIMEOUT, env=env)
     assert proc.returncode == expect_rc, proc.stdout[-4000:] + proc.stderr[-4000:]
     return json.loads(proc.stdout.strip().splitlines()[-1])
@@ -172,6 +179,39 @@ def test_cli_resumes_in_a_new_process_bitwise_past_torn_saves(uninterrupted):
     assert sorted(os.listdir(r / "ckpt")) == ["2", "3", "4", "tmp.3"]
 
 
+# the recipe's options on top of the tiny model: streaming targets,
+# softmax centering, two microbatches a step and block remat
+RECIPE_OPTIONS = ("loss.streaming_targets=true", "loss.k_tile=24",
+                  "train.centering=softmax_center", "optim.accum_steps=2",
+                  "train.checkpointing=true")
+
+
+def test_cli_resumes_bitwise_under_softmax_centering_accum_and_remat(tmp_path):
+    """As the test above, under ``RECIPE_OPTIONS``: 4 iterations in one
+    process against 2 then a resume to 4 in a new process; losses, the
+    centers and the final student, teacher and moments equal bit for
+    bit, and the centers moved."""
+    opts = dict(extra=RECIPE_OPTIONS)
+    a = run_cli(tmp_path / "a", "--max-iterations", 4,
+                "--record-losses", tmp_path / "a.jsonl", **opts)
+    assert (a["targets"], a["centering"], a["remat"], a["accum_steps"]) == (
+        "streaming", "softmax_center", "blocks", 2)
+    r = tmp_path / "r"
+    run_cli(r, "--max-iterations", 2, "--record-losses", tmp_path / "r1.jsonl", **opts)
+    second = run_cli(r, "--max-iterations", 4, "--record-losses", tmp_path / "r2.jsonl",
+                     **opts)
+    assert second["start_iteration"] == 2 and second["iterations"] == 4
+    want = read_losses(tmp_path / "a.jsonl")
+    got = {**read_losses(tmp_path / "r1.jsonl"), **read_losses(tmp_path / "r2.jsonl")}
+    assert sorted(got) == [0, 1, 2, 3] and got == want
+    wa, wr = load_ckpt(tmp_path / "a", 4), load_ckpt(r, 4)
+    for key in ("student", "teacher", "mu", "nu", "center_state"):
+        assert wa[key].keys() == wr[key].keys()
+        for n in wa[key]:
+            assert torch.equal(wa[key][n], wr[key][n]), (key, n)
+    assert all(wa["center_state"][k].abs().sum() > 0 for k in wa["center_state"])
+
+
 def test_cli_self_check_passes_and_exits_zero(tmp_path):
     result = run_cli(tmp_path, "--self-check")
     checks = {k: v for k, v in result.items() if k.startswith("check/")}
@@ -209,6 +249,34 @@ def test_checkpoint_round_trip_is_bitwise(tmp_path):
     for a, b in zip(state.opt_state.mu + state.opt_state.nu,
                     restored.opt_state.mu + restored.opt_state.nu):
         assert torch.equal(a, b)
+
+
+def test_centers_survive_save_and_restore(tmp_path):
+    """Softmax centering: the centers after a step are saved and restored
+    bit for bit; a payload without centers is refused under softmax
+    centering and keeps the initial ones under Sinkhorn-Knopp."""
+    from dinov3_tpu_torch.checkpoint import Checkpointer, load_payload, state_payload
+    from dinov3_tpu_torch.data import make_synthetic_batch
+    from dinov3_tpu_torch.train import build_train_setup
+
+    tcfg = cfgs(["train.centering=softmax_center"])[1]
+    batch = make_synthetic_batch(tcfg, B, seed=1)
+    setup = build_train_setup(tcfg, batch, device="cpu", seed=3)
+    state, _ = setup.step_fn(setup.state, batch, setup.scalars(0))
+    assert all(c.abs().sum() > 0 for c in state.center_state.values())
+    ckpt = Checkpointer(tmp_path)
+    ckpt.save(1, state)
+    other = build_train_setup(tcfg, batch, device="cpu", seed=4)
+    restored = ckpt.restore(other.state)
+    for k, c in state.center_state.items():
+        assert torch.equal(restored.center_state[k], c), k
+    old = {k: v for k, v in state_payload(state).items() if k != "center_state"}
+    with pytest.raises(KeyError, match="centers"):
+        load_payload(other.state, old)
+    sk, _ = small_setup()
+    zeros = {k: v.clone() for k, v in sk.state.center_state.items()}
+    load_payload(sk.state, old)
+    assert all(torch.equal(sk.state.center_state[k], zeros[k]) for k in zeros)
 
 
 def test_latest_step_skips_torn_saves(tmp_path):
@@ -506,6 +574,54 @@ def test_jax_checkpoint_restores_and_both_continue_alike(jax_world, tmp_path):
         assert close >= 0.99 * total, (i, close, total)
     assert state.step == 4 and state.opt_state.count == 4
     assert int(jstate.opt_state.adam.count) == 4
+
+
+def test_restore_jax_local_reads_the_center_state(jax_world, tmp_path):
+    """A JAX local save whose ``center_state`` holds nonzero centers: the
+    port restores them bit for bit, with the rest of the state."""
+    from dinov3_tpu.checkpoint import Checkpointer as JaxCheckpointer
+    from dinov3_tpu.train.optimizer import build_optimizer
+    from dinov3_tpu.train.schedules import build_schedules as jsched
+    from dinov3_tpu.train.train_step import TrainState
+
+    from dinov3_tpu_torch.checkpoint import restore_jax_local
+    from dinov3_tpu_torch.train import build_train_setup
+
+    w = jax_world
+    params = w["params"]
+    opt = build_optimizer(w["jcfg"], params["student"], jsched(w["jcfg"]))
+    rng = np.random.default_rng(5)
+    centers = {k: jnp.asarray(rng.standard_normal((1, 64)).astype(np.float32))
+               for k in ("dino_center", "ibot_center")}
+    jstate = TrainState(jax.tree.map(jnp.asarray, params), opt.init(params["student"]),
+                        centers, jnp.asarray(3, jnp.int32))
+    jax_ckpt = JaxCheckpointer(str(tmp_path), async_save=False)
+    try:
+        jax_ckpt._local_save(3, jstate)
+    finally:
+        jax_ckpt.close()
+    tcfg = cfgs(["train.centering=softmax_center"])[1]
+    setup = build_train_setup(tcfg, w["batch"], device="cpu", seed=11)
+    state = restore_jax_local(str(tmp_path), setup.state)
+    assert state.step == 3
+    for k, c in centers.items():
+        assert torch.equal(state.center_state[k], torch.from_numpy(np.array(c))), k
+
+
+def test_the_recipe_yaml_passes_the_slice_check_as_written():
+    """``configs/train/vitl16_im1k.yaml`` with no loss, centering or batch
+    override: nothing is refused; the step resolves streaming targets, no
+    remat, no accumulation and B=64."""
+    from dinov3_tpu_torch.configs import load_config
+    from dinov3_tpu_torch.configs.config import check_train_slice, streaming_targets_wished
+    from dinov3_tpu_torch.models import remat_mode
+
+    cfg = load_config(REPO / "configs" / "train" / "vitl16_im1k.yaml",
+                      ["data.backend=synthetic"])
+    check_train_slice(cfg)
+    assert streaming_targets_wished(cfg) and cfg.loss.k_tile == 8192
+    assert cfg.train.centering == "sinkhorn_knopp" and remat_mode(cfg) == "none"
+    assert cfg.optim.accum_steps == 1 and cfg.train.batch_size_per_device == 64
 
 
 def test_jax_npz_bf16_leaves_are_read_by_their_bits(tmp_path):
