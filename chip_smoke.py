@@ -59,6 +59,19 @@ H. the recipe as written (``configs/train/vitl16_im1k.yaml`` with only
    ``optim.accum_steps=2`` (H4), softmax centering with bf16 targets (H5),
    the phase-F card-vs-CPU step with streaming targets, ``blocks`` remat
    and two microbatches (H6), and one trainer CLI run of the recipe (H7).
+I. the evaluation path at ViT-L/16: feature extraction with seeded
+   weights over synthetic 256 px images through the eval transform at 224
+   px, batches of 256 (I1: img/s apart from the host pipeline, peak
+   memory, K1 x24 and K4 x49 launches a batch pinned, K1 and K4 timed at
+   the eval shapes); a 2-block model's features and intermediate layers
+   on the card against the CPU (I2); k-NN at k = 10, 20 and one epoch of
+   the 8-lr probe sweep at ImageNet-1k's sizes (1,281,167 / 50,000 rows
+   of 1024, 1000 classes) on seeded class-structured features, and a
+   20k / 5k subset on the card against the CPU (I3); ``python -m
+   dinov3_tpu_torch.evals`` on phase G's step-4 checkpoint in a child
+   process, the teacher it restores compared bitwise (I4); and evals
+   inside a trainer CLI run at B=32, their launches on top of the steps'
+   and the step times within phase G's band (I5).
 
 Prints the kernel table as one JSON line, the card's name and power
 limit, and as its last line ``{"ok": true, "device": {...}}``. Any
@@ -1471,6 +1484,10 @@ def _phase_g(step: dict, cfg) -> dict:
     print(f"[G] final teacher, resumed vs uninterrupted: largest |difference| "
           f"{worst:.3e} ({worst_ratio:.3f} of its tolerance), bitwise {same}")
     del ta, tr
+    # the uninterrupted run's step-4 checkpoint is phase I's to evaluate
+    shutil.rmtree(I_DIR, ignore_errors=True)
+    os.makedirs(I_CKPT)
+    os.rename(os.path.join(a_dir, "ckpt", "4"), os.path.join(I_CKPT, "4"))
     shutil.rmtree(a_dir)
     shutil.rmtree(r_dir)
 
@@ -1729,6 +1746,359 @@ def phase_h5() -> None:
     torch.cuda.empty_cache()
 
 
+# ---------------------------------------------------------------- phase I
+
+I_DIR = os.path.join(REPO, "build", "phase_i")
+# phase G's uninterrupted run hands its step-4 checkpoint over here
+I_CKPT = os.path.join(I_DIR, "ckpt")
+EVAL_B = 256
+EVAL_PX = 224
+# launches of one feature batch of the ViT-L/16 forward: K1 once a block,
+# K4 twice a block and the final norm
+EVAL_LAUNCHES = {"K1": 24, "K2": 0, "K3": 0, "K4": 49, "K5": 0}
+# ImageNet-1k's split lengths (dinov3_tpu/data/datasets/image_net.py) and
+# classes, at the ViT-L/16 width
+IN1K_TRAIN, IN1K_VAL, IN1K_CLASSES, EVAL_DIM = 1_281_167, 50_000, 1000, 1024
+# in-run eval sets of phase I5: do_eval's batch of 64 takes 2 train and 1
+# val feature batches
+I5_SETS = ["evaluation.train_dataset_path=Synthetic:split=TRAIN:size=128:image_size=256:"
+           "n_classes=10",
+           "evaluation.val_dataset_path=Synthetic:split=VAL:size=64:image_size=256:"
+           "n_classes=10"]
+I5_FEATURE_BATCHES = 3
+
+
+def forward_flops(model, n_tokens: int) -> float:
+    """Operations of one image through the ViT forward: 24 D^2 a token a
+    block (qkv, proj and the 4x MLP, two operations a MAC), attention
+    4 N^2 d a head a block, the patch embedding."""
+    D, L, H = model.embed_dim, model.n_blocks, model.num_heads
+    p = model.patch_size
+    blocks = L * (24 * n_tokens * D * D + 4 * n_tokens ** 2 * (D // H) * H)
+    return blocks + 2 * (n_tokens - model.n_prefix) * p * p * model.in_chans * D
+
+
+def device_busy(fn, label: str, top: int = 8) -> dict:
+    """Wall and device-busy ms of one run of fn() under torch.profiler
+    (device-side events only), its idle share, its device time by kernel
+    class and its top kernels."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    activities = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
+    torch.cuda.synchronize()
+    with profile(activities=activities) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    events = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    if not events:
+        print(f"[{label}] profile: no device events recorded (device time not measured)")
+        return {"wall_ms": wall}
+    by_name: dict = {}
+    for e in events:
+        n, t = by_name.get(e.name, (0, 0.0))
+        by_name[e.name] = (n + 1, t + e.time_range.elapsed_us() / 1e3)
+    busy = sum(t for _, t in by_name.values())
+    buckets = dict.fromkeys(("K1", "K4", "gemm", "memcpy", "elementwise/other"), 0.0)
+    for name, (_, t) in by_name.items():
+        low = name.lower()
+        key = ("K1" if "flash_fwd" in low else "K4" if "layernorm_fwd" in low
+               else "gemm" if any(w in low for w in ("gemm", "xmma", "cutlass", "nvjet"))
+               else "memcpy" if "memcpy" in low or "memset" in low else "elementwise/other")
+        buckets[key] += t
+    print(f"[{label}] profile: wall {wall:.2f} ms (tracer on), device busy {busy:.2f} ms, "
+          f"idle share {max(0.0, 1 - busy / wall):.3f}; " + ", ".join(
+              f"{k} {v:.2f} ms" for k, v in buckets.items()))
+    for name, (n, t) in sorted(by_name.items(), key=lambda r: -r[1][1])[:top]:
+        print(f"[{label}]   {t:9.3f} ms  x{n:<5d} {name[:90]}")
+    return {"wall_ms": wall, "busy_ms": busy}
+
+
+def host_batches(dataset_str: str, transform, n_batches: int, seed: int = 0) -> list:
+    """The first n_batches batches of EVAL_B images of the eval harness's
+    loader (threads, epoch sampler, collate), collected on the host."""
+    from dinov3_tpu_torch.evals.harness import _loader
+
+    loader, _ = _loader(dataset_str, transform, EVAL_B, 8, seed, None)
+    batches = iter(loader)
+    try:
+        return list(itertools.islice(batches, n_batches))
+    finally:
+        batches.close()
+
+
+def phase_i(cfg, g_step_ms: list) -> dict:
+    """The evaluation path at ViT-L/16 (module docstring); ``g_step_ms``:
+    phase G's ``--benchmark`` step times, the band of phase I5's."""
+    import torch
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    check(os.path.isdir(I_CKPT), f"[I] phase G's checkpoint is not under {I_CKPT}")
+    try:
+        out = phase_i1(cfg)
+        phase_i2(cfg)
+        out["i3"] = phase_i3()
+        phase_i4(cfg)
+        phase_i5(g_step_ms)
+    finally:
+        shutil.rmtree(I_DIR, ignore_errors=True)
+    return out
+
+
+def phase_i1(cfg) -> dict:
+    """Feature extraction: seeded ViT-L/16 weights, synthetic 256 px images
+    through the eval transform at 224 px, batches of 256."""
+    import torch
+
+    from dinov3_tpu_torch.data.transforms import make_classification_eval_transform
+    from dinov3_tpu_torch.evals import extract_features, make_feature_fn
+    from dinov3_tpu_torch.models import build_model_for_eval
+
+    t0 = time.perf_counter()
+    model = build_model_for_eval(cfg, device="cuda", seed=0)
+    print(f"[I1] eval model (seeded ViT-L/16 teacher backbone, fp32 parameters, bf16 compute): "
+          f"{model.n_blocks} blocks, width {model.embed_dim}; built in "
+          f"{time.perf_counter() - t0:.1f} s")
+    check(model.n_blocks == 24 and model.embed_dim == 1024 and model.n_prefix == 1,
+          "[I1] not the ViT-L/16 slice")
+    n_batches = 4
+    t0 = time.perf_counter()
+    batches = host_batches("Synthetic:split=TRAIN:size=100000:image_size=256",
+                           make_classification_eval_transform(256, EVAL_PX), n_batches + 1)
+    host_s = time.perf_counter() - t0
+    n_img = n_batches * EVAL_B
+    print(f"[I1] host pipeline (8 threads: synthetic 256 px images, resize, centre crop "
+          f"224, normalize, collate): {(n_batches + 1) * EVAL_B} images in {host_s:.2f} s, "
+          f"{(n_batches + 1) * EVAL_B / host_s:.1f} img/s")
+    check(batches[0]["image"].shape == (EVAL_B, EVAL_PX, EVAL_PX, 3), "[I1] batch shape")
+    warm, _ = extract_features(model, iter(batches[:1]))  # library handles, allocator
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    t0 = time.perf_counter()
+    feats, labels = extract_features(model, iter(batches[1:]))
+    wall = time.perf_counter() - t0
+    launches = read_counts()
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    flops = forward_flops(model, 1 + (EVAL_PX // 16) ** 2)
+    img_s = n_img / wall
+    cap = BF16_TC_FLOP_S / flops
+    print(f"[I1] extract_features: {n_img} images in {wall * 1e3:.1f} ms (host batches in "
+          f"memory, pinned copies, one read-back a batch, synchronized): {img_s:.1f} img/s; "
+          f"{flops / 1e9:.1f} GFLOP an image caps the card at {cap:.0f} img/s, share "
+          f"{img_s / cap:.4f}; peak memory {peak:.2f} GiB; launches {launches}")
+    check(feats.shape == (n_img, 1024) and feats.dtype == np.float32
+          and np.isfinite(feats).all() and labels.shape == (n_img,), "[I1] bad features")
+    want = {k: v * n_batches for k, v in EVAL_LAUNCHES.items()}
+    check(launches == want, f"[I1] launches {launches} != {want}")
+    # the same images as one more batch: the first batch's features again
+    again, _ = extract_features(model, iter(batches[:1]))
+    check(np.array_equal(warm, again), "[I1] two extractions of one batch differ")
+    feat = make_feature_fn(model)
+    x = torch.from_numpy(batches[1]["image"]).to("cuda")
+    device_busy(lambda: feat(x), "I1 one batch")
+    del x
+
+    # K1 and K4 at the eval shapes: q, k, v of one block's qkv projection
+    # ([256, 197, 3 x 1024] bf16, v a view), and the block input rows
+    g = torch.Generator().manual_seed(0)
+    N, H, D = 1 + (EVAL_PX // 16) ** 2, 16, 64
+    qkv = torch.randn(EVAL_B, N, 3 * H * D, generator=g).to("cuda", torch.bfloat16)
+    q, k, v = (qkv[..., i * H * D:(i + 1) * H * D].reshape(EVAL_B, N, H, D) for i in range(3))
+    k1 = check_flash(q.contiguous(), k.contiguous(), v, None,
+                     f"eval [{EVAL_B}x{H}, {N}, {D}] bf16 no seg", time_it=True)
+    del qkv, q, k, v
+    xr = (torch.randn(EVAL_B * N, 1024, generator=g) * 3 + 1).to("cuda", torch.bfloat16)
+    s, b = torch.randn(1024, generator=g) * 0.5 + 1, torch.randn(1024, generator=g)
+    k4 = check_layernorm(xr, s.to("cuda"), b.to("cuda"),
+                         f"eval rows [{EVAL_B * N}, 1024] bf16, fp32 params", time_it=True)
+    del xr, model
+    return {"launches": launches, "batches": n_batches, "img_s": img_s, "peak_gib": peak,
+            "K1": k1, "K4": k4}
+
+
+def phase_i2(cfg) -> None:
+    """The features and intermediate layers of 8 images through a 2-block
+    ViT-L-width model (LayerScale 1, as phase D) on the card and on the
+    CPU, from the same fp32 weights."""
+    import torch
+
+    from dinov3_tpu_torch.configs import apply_dot_overrides
+    from dinov3_tpu_torch.evals import extract_features
+    from dinov3_tpu_torch.models import backbone_kwargs_from_cfg, vit_large
+
+    cfg = copy.deepcopy(cfg)
+    apply_dot_overrides(cfg, ["student.layerscale=1.0"])
+    model = vit_large(**backbone_kwargs_from_cfg(cfg), n_blocks=2)
+    model.init_weights(torch.Generator().manual_seed(6))
+    model = model.eval().requires_grad_(False)
+    images = np.random.default_rng(7).standard_normal(
+        (8, EVAL_PX, EVAL_PX, 3)).astype(np.float32)
+    out = {}
+    for dev in ("cuda", "cpu"):
+        m = copy.deepcopy(model).to(dev)
+        t0 = time.perf_counter()
+        feats, _ = extract_features(m, iter([{"image": images, "label": np.arange(8)}]))
+        with torch.inference_mode():
+            layers = m.get_intermediate_layers(torch.from_numpy(images).to(dev), [0, 1],
+                                               return_class_token=True)
+        out[dev] = [feats] + [t.float().cpu().numpy() for pair in layers for t in pair]
+        print(f"[I2] 8 images on {dev}: {(time.perf_counter() - t0) * 1e3:.1f} ms")
+    # phase D's tolerance: 2^-4 of the magnitude (two bf16 blocks whose
+    # matmuls sum in other orders, K1's bf16 probabilities)
+    names = ["features", "block 0 patches", "block 0 cls", "block 1 patches", "block 1 cls"]
+    for name, a, b in zip(names, out["cuda"], out["cpu"]):
+        check(a.shape == b.shape and np.isfinite(a).all(), f"[I2] {name}: bad output")
+        err = float(np.abs(a - b).max())
+        tol = 2.0 ** -4 * max(float(np.abs(b).max()), 1.0)
+        print(f"[I2] card vs CPU {name} {tuple(a.shape)}: max error {err:.3e} (tol {tol:.3e})")
+        check(err <= tol, f"[I2] {name}: card vs CPU {err:.3e} > {tol:.3e}")
+
+
+def in1k_features(gen, n: int, centers, spread: float):
+    """n seeded class-structured fp32 rows on the card: a class's unit
+    center plus Gaussian noise, classes drawn uniformly."""
+    import torch
+
+    labels = torch.randint(0, IN1K_CLASSES, (n,), generator=gen, device="cuda")
+    x = torch.randn(n, EVAL_DIM, generator=gen, device="cuda").mul_(spread)
+    return x.add_(centers[labels]), labels
+
+
+def phase_i3() -> dict:
+    """k-NN (k = 10, 20) and one epoch of the 8-lr probe sweep at
+    ImageNet-1k's sizes, on seeded class-structured features made on the
+    card; a 20k/5k subset on the card against the CPU."""
+    import torch
+
+    from dinov3_tpu_torch.evals import knn_eval_multi, linear_probe_sweep
+    from dinov3_tpu_torch.evals.knn import knn_predict
+    from dinov3_tpu_torch.evals.linear import epoch_orders, train_probes
+
+    gen = torch.Generator(device="cuda").manual_seed(11)
+    centers = torch.randn(IN1K_CLASSES, EVAL_DIM, generator=gen, device="cuda")
+    centers /= centers.norm(dim=1, keepdim=True)
+    tx, ty = in1k_features(gen, IN1K_TRAIN, centers, 0.05)
+    vx, vy = in1k_features(gen, IN1K_VAL, centers, 0.05)
+    torch.cuda.synchronize()
+    print(f"[I3] features: train {tuple(tx.shape)}, val {tuple(vx.shape)} fp32, "
+          f"{IN1K_CLASSES} classes, on the card")
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    knn = knn_eval_multi(tx, ty, vx, vy, IN1K_CLASSES, device="cuda")
+    knn_s = time.perf_counter() - t0
+    knn_peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    # the similarity products in fp32: 2 N_val N_train d operations
+    sim_ops = 2.0 * IN1K_VAL * IN1K_TRAIN * EVAL_DIM
+    print(f"[I3] knn_eval_multi (k = 10, 20; one pass, chunks of 1024 queries): "
+          f"{knn_s:.3f} s, peak {knn_peak:.2f} GiB; {knn}; similarity products "
+          f"{sim_ops / 1e12:.1f} TFLOP, {sim_ops / FP32_FLOP_S:.3f} s at the fp32 peak")
+    check(min(knn.values()) > 0.9, f"[I3] k-NN top-1 {knn} on separable features")
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    best, grid = linear_probe_sweep(tx, ty, vx, vy, IN1K_CLASSES, epochs=1, device="cuda")
+    sweep_s = time.perf_counter() - t0
+    sweep_peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    steps = IN1K_TRAIN // 256
+    print(f"[I3] linear_probe_sweep, 8 lrs, 1 epoch of {steps} steps of 256 rows: "
+          f"{sweep_s:.3f} s ({sweep_s / steps * 1e3:.4f} ms a step), peak {sweep_peak:.2f} "
+          f"GiB; best {best:.4f}; {grid}")
+    check(best > 0.9, f"[I3] best probe top-1 {best} on separable features")
+    # how much of a probe step is the host's: 200 steps profiled
+    sub = epoch_orders(200 * 256, 1, seed=0)
+    device_busy(lambda: train_probes(tx[:200 * 256], ty[:200 * 256], IN1K_CLASSES,
+                                     [1e-3] * 8, [0.0] * 8, epochs=1, orders=sub,
+                                     device="cuda"), "I3 200 probe steps")
+    device_busy(lambda: knn_predict(tx, ty, vx[:4096], IN1K_CLASSES, (10, 20),
+                                    device="cuda"), "I3 k-NN, 4 chunks")
+
+    # the card against the CPU on a 20k / 5k subset
+    stx, sty, svx, svy = (t.cpu() for t in (tx[:20_000], ty[:20_000], vx[:5_000], vy[:5_000]))
+    del tx, ty, vx, vy
+    preds = {dev: knn_predict(stx, sty, svx, IN1K_CLASSES, (10, 20), device=dev)
+             for dev in ("cuda", "cpu")}
+    for k in (10, 20):
+        same = int((preds["cuda"][k] == preds["cpu"][k]).sum())
+        print(f"[I3] k-NN k={k} on 20k/5k: card and CPU predictions equal on {same} of 5000")
+        check(same == 5000, f"[I3] k-NN k={k}: card and CPU predictions differ")
+    sweeps = {dev: linear_probe_sweep(stx, sty, svx, svy, IN1K_CLASSES, epochs=1, device=dev)[1]
+              for dev in ("cuda", "cpu")}
+    worst = max(abs(sweeps["cuda"][c] - sweeps["cpu"][c]) * 5000 for c in sweeps["cpu"])
+    print(f"[I3] sweep on 20k/5k: card {sweeps['cuda']}; CPU {sweeps['cpu']}; largest "
+          f"difference {worst:.0f} samples")
+    check(worst <= 1 + 1e-6, f"[I3] sweep: card and CPU differ by {worst} samples")
+    return {"knn_s": knn_s, "knn_peak_gib": knn_peak, "sweep_epoch_s": sweep_s,
+            "sweep_peak_gib": sweep_peak}
+
+
+def phase_i4(cfg) -> None:
+    """``python -m dinov3_tpu_torch.evals`` on phase G's checkpoint, in a
+    child process with a time limit, over 2048 / 512 synthetic images."""
+    import torch
+
+    from dinov3_tpu_torch.models import build_model_for_eval
+
+    cmd = [sys.executable, "-m", "dinov3_tpu_torch.evals", "--ckpt", I_CKPT,
+           "--config-file", CLI_CONFIG, "--batch-size", str(EVAL_B), "--probe-epochs", "2",
+           "--output", os.path.join(I_DIR, "eval.json"),
+           "evaluation.train_dataset_path=Synthetic:split=TRAIN:size=2048:image_size=256:"
+           "n_classes=10",
+           "evaluation.val_dataset_path=Synthetic:split=VAL:size=512:image_size=256:"
+           "n_classes=10", "train.num_workers=8"]
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, cwd=REPO, capture_output=True, text=True, timeout=300)
+    wall = time.perf_counter() - t0
+    with open(os.path.join(I_DIR, "eval_cli.log"), "w") as f:
+        f.write(proc.stdout + proc.stderr)
+    if proc.returncode != 0:
+        tail = (proc.stdout + proc.stderr).splitlines()[-40:]
+        raise SmokeFailure(f"[I4] eval CLI: exit {proc.returncode}\n" + "\n".join(tail))
+    results = json.loads(proc.stdout.strip().splitlines()[-1])
+    print(f"[I4] eval CLI on the step-4 checkpoint: {wall:.1f} s wall; {results}")
+    check({"knn10_top1", "knn20_top1", "knn_top1", "linear_top1", "linear_sweep"}
+          <= set(results) and len(results["linear_sweep"]) == 8, f"[I4] results {results}")
+    check(all(0.0 <= v <= 1.0 for v in (results["knn_top1"], results["linear_top1"])),
+          f"[I4] results {results}")
+    with open(os.path.join(I_DIR, "eval.json")) as f:
+        check(json.load(f) == results, "[I4] --output differs from the printed line")
+    model = build_model_for_eval(cfg, I_CKPT, device="cuda")
+    want = teacher_of(I_DIR, 4)
+    got = model.state_dict()
+    bad = [k for k, v in got.items() if not torch.equal(v.cpu(), want[f"backbone.{k}"])]
+    check(not bad and len(got) == sum(k.startswith("backbone.") for k in want),
+          f"[I4] restored teacher differs from the checkpoint's: {bad[:5]}")
+    print(f"[I4] build_model_for_eval: the EMA teacher backbone of step 4, {len(got)} "
+          f"tensors, bitwise the checkpoint's")
+    del model, want, got
+
+
+def phase_i5(g_step_ms: list) -> None:
+    """Evals inside a trainer CLI run at ViT-L/16, B=32: 3 iterations, an
+    eval after the second (inside a --benchmark interval), one save."""
+    result = run_cli("in-run eval", ["--output-dir", os.path.join(I_DIR, "run"),
+                                     "--max-iterations", "3", "--benchmark", "2"],
+                     ["checkpointing.period=100", "evaluation.eval_period_iterations=2",
+                      "train.num_workers=8", *I5_SETS], label="I5", log_dir=I_DIR)
+    with open(os.path.join(I_DIR, "run", "evals.json")) as f:
+        records = [json.loads(line) for line in f]
+    print(f"[I5] evals.json {records}; eval {result['evals'][0]['seconds']:.2f} s; "
+          f"--benchmark steps " + ", ".join(f"{t:.1f}" for t in result["step_ms"]) + " ms")
+    check([r["iteration"] for r in records] == [2] and len(result["evals"]) == 1,
+          f"[I5] eval records {records}")
+    want = {k: 3 * v + I5_FEATURE_BATCHES * EVAL_LAUNCHES[k] for k, v in STEP_LAUNCHES.items()}
+    check(result["launches"] == want, f"[I5] launches {result['launches']} != {want}")
+    check(np.isfinite(result["final_loss"]), f"[I5] loss {result['final_loss']}")
+    lo, hi = min(g_step_ms), max(g_step_ms)
+    check(all(0.9 * lo <= t <= 1.1 * hi for t in result["step_ms"]),
+          f"[I5] step times {result['step_ms']} outside phase G's band "
+          f"[0.9 x {lo:.1f}, 1.1 x {hi:.1f}] ms")
+    print(f"[I5] step times within phase G's band ({lo:.1f}-{hi:.1f} ms, 10 % each way)")
+
+
 # ---------------------------------------------------------------- main
 
 def main() -> int:
@@ -1753,9 +2123,13 @@ def main() -> int:
     rows.update(phase_b_bwd())
     train_launches, step = phase_e()
     phase_f()
-    cli = phase_g(step)["uninterrupted"]
+    g = phase_g(step)
+    cli = g["uninterrupted"]
     recipe = phase_h()
+    ev = phase_i(cfg, g["benchmark"]["step_ms"])
     print(f"[smoke] all phases passed in {time.perf_counter() - t_start:.1f} s")
+    for key in ("K1", "K4"):
+        rows[key]["eval_shapes"] = ev[key]
 
     table = []
     for key, name, source, replaces in (
@@ -1774,26 +2148,31 @@ def main() -> int:
         table.append({
             "name": name, "route": "cuda", "source": source,
             "replaces": replaces,
-            # the counted runs of the four paths: 3 serve packs (phase C),
+            # the counted runs of the five paths: 3 serve packs (phase C),
             # 5 training steps (phase E), the trainer CLI's uninterrupted
-            # 4-iteration run (phase G, counted in its own process) and 5
-            # steps of the recipe as written (phase H1)
+            # 4-iteration run (phase G, counted in its own process), 5
+            # steps of the recipe as written (phase H1) and 4 feature
+            # batches of the eval path (phase I1)
             "launches": (serve_launches[key] + train_launches[key] + cli["launches"][key]
-                         + recipe["launches"][key]),
+                         + recipe["launches"][key] + ev["launches"][key]),
             "launches_per_serve_pack": serve_launches[key] / packs,
             "launches_per_train_step": train_launches[key] / 5,
             "launches_per_cli_iteration": cli["launches"][key] / 4,
             "launches_per_recipe_step": recipe["per_step"][key],
+            "launches_per_eval_batch": ev["launches"][key] / ev["batches"],
             "max_abs_err": r["max_abs_err"], "ms": r["ms"],
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
             "bound_by": r["bound_by"], "library_ms": r["library_ms"],
-            **{k: r[k] for k in ("cold_ms", "visited_share", "walked_share", "train_shapes")
-               if k in r},
+            **{k: r[k] for k in ("cold_ms", "visited_share", "walked_share", "train_shapes",
+                                 "eval_shapes") if k in r},
         })
     print(f"[smoke] train step {step['ms']:.1f} ms, "
           f"{TRAIN_B / step['ms'] * 1e3:.2f} img/s, peak {step['peak_gib']:.2f} GiB; "
           f"the recipe as written (B={recipe['B']}) {recipe['median_ms']:.1f} ms, "
-          f"{recipe['B'] / recipe['median_ms'] * 1e3:.2f} img/s, peak {recipe['peak_gib']:.2f} GiB")
+          f"{recipe['B'] / recipe['median_ms'] * 1e3:.2f} img/s, peak {recipe['peak_gib']:.2f} GiB; "
+          f"eval extraction {ev['img_s']:.1f} img/s at B={EVAL_B}, peak {ev['peak_gib']:.2f} GiB; "
+          f"k-NN at ImageNet-1k size {ev['i3']['knn_s']:.2f} s, a sweep epoch "
+          f"{ev['i3']['sweep_epoch_s']:.2f} s")
     print(json.dumps({"kernels": table}))
     print(smi_line())
     print(json.dumps({"ok": True, "device": {

@@ -16,8 +16,10 @@ plus every ``keep_every``-th. Saving is synchronous.
 ``restore_jax_local`` reads the JAX package's local-npz checkpoints
 (``<dir>/<n>/state.npz`` keyed by the ``jax.tree_util.keystr`` paths of
 its ``TrainState``, the centers included) through ``interop/from_jax.py``;
-it needs neither JAX nor ``ml_dtypes``. The JAX package's orbax checkpoints are not read:
-orbax is not a dependency of the port (ROADMAP).
+it needs neither JAX nor ``ml_dtypes``. ``teacher_backbone_state_dict``
+reads only the EMA teacher's backbone from either kind (evals, serving).
+The JAX package's orbax checkpoints are not read: orbax is not a
+dependency of the port (ROADMAP M5).
 """
 
 from __future__ import annotations
@@ -215,6 +217,42 @@ def jax_local_steps(directory: str) -> list[int]:
         if d.isdigit()
         and os.path.exists(os.path.join(directory, d, JAX_PAYLOAD))
         and os.path.exists(os.path.join(directory, d, FINALIZED)))
+
+
+def teacher_backbone_state_dict(directory: str) -> tuple[int, dict]:
+    """(step, the EMA teacher backbone's ``state_dict``) of the latest
+    finalized step under ``directory``: a checkpoint of this package
+    (``payload["teacher"]``'s ``backbone.*`` tensors, the payload mapped,
+    not read whole), else a JAX local-npz one (only the teacher backbone's
+    leaves are read). The JAX package's orbax checkpoints are refused
+    (ROADMAP M5); a directory with no finalized step raises
+    ``FileNotFoundError``."""
+    step = Checkpointer(directory).latest_step()
+    if step is not None:
+        path = os.path.join(directory, str(step), PAYLOAD)
+        payload = torch.load(path, map_location="cpu", mmap=True, weights_only=True)
+        if payload.get("format") not in (1, FORMAT):
+            raise ValueError(f"{path}: not a checkpoint of this package")
+        return step, {k[len("backbone."):]: v for k, v in payload["teacher"].items()
+                      if k.startswith("backbone.")}
+    steps = jax_local_steps(directory)
+    if steps:
+        from dinov3_tpu_torch.interop.from_jax import (
+            TEACHER_BACKBONE,
+            keystr_path,
+            teacher_backbone_from_jax,
+        )
+
+        with np.load(os.path.join(directory, str(steps[-1]), JAX_PAYLOAD)) as z:
+            flat = {k: z[k] for k in z.files if keystr_path(k)[:3] == TEACHER_BACKBONE}
+        return steps[-1], teacher_backbone_from_jax(flat)
+    if os.path.isdir(directory) and any(
+            d.isdigit() and os.path.isdir(os.path.join(directory, d, "state"))
+            for d in os.listdir(directory)):
+        raise NotImplementedError(
+            f"{directory} holds orbax checkpoints of the JAX package: only its "
+            "local-npz checkpoints are read (ROADMAP M5)")
+    raise FileNotFoundError(f"no finalized checkpoint under {directory}")
 
 
 def restore_jax_local(directory: str, state: TrainState) -> TrainState:

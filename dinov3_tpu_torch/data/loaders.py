@@ -6,9 +6,10 @@ on a producer thread and up to ``prefetch_batches`` wait ready. Closing
 the iterator stops and joins the producer. ``BackgroundIterator`` is that
 producer for any iterable (the synthetic stream uses it too).
 
-The dataset strings are the JAX package's (``"Folder:root=/data"``); only
-the image folder is ported, the other datasets wait (ROADMAP M5). Nothing
-here imports PIL: the datasets are imported when one is made.
+The dataset strings are the JAX package's (``"Folder:root=/data"``); the
+image folder, the synthetic images and ImageNet are ported, the other
+datasets wait (ROADMAP M5). Nothing here imports PIL: the datasets are
+imported when one is made.
 """
 
 from __future__ import annotations
@@ -69,20 +70,32 @@ def resolve_dataset_str(cfg, dataset_str: str | None = None) -> str:
     return f"{dataset_str}:root={root}"
 
 
+# datasets of the JAX package that wait, by their dataset-string names
+_WAITING_DATASETS = ("ImageNet22k", "ADE20K", "CocoCaptions", "WebShards")
+
+
 def make_dataset(dataset_str: str, transform: Optional[Callable] = None,
                  target_transform: Optional[Callable] = None, seed: int = 0):
-    """``"Folder:root=/data/images"`` -> dataset instance."""
+    """``"ImageNet:split=TRAIN:root=/data/in1k"`` -> dataset instance
+    (``Folder``, ``Synthetic`` or ``ImageNet``); ``size``, ``image_size``
+    and ``n_classes`` are read as ints."""
     name, kwargs = _parse_dataset_str(dataset_str)
-    if name != "Folder":
+    if name in _WAITING_DATASETS:
         raise NotImplementedError(
-            f"dataset {name!r}: only the image folder (Folder:root=...) is "
-            "ported; ImageNet, ImageNet-22k, web shards and tar files wait "
-            "(ROADMAP M5)")
-    from dinov3_tpu_torch.data.datasets import ImageFolder
+            f"dataset {name!r}: ImageNet-22k, web shards, tar files, ADE20K and "
+            "captions wait (ROADMAP M5)")
+    from dinov3_tpu_torch.data import datasets as D
 
+    registry = {"Folder": D.ImageFolder, "Synthetic": D.SyntheticImages,
+                "ImageNet": D.ImageNet}
+    if name not in registry:
+        raise ValueError(f"unknown dataset {name!r} (have {sorted(registry)})")
+    for int_key in ("size", "image_size", "n_classes"):
+        if int_key in kwargs:
+            kwargs[int_key] = int(kwargs[int_key])
     logger.info('making dataset "%s"', dataset_str)
-    return ImageFolder(transform=transform, target_transform=target_transform,
-                       seed=seed, **kwargs)
+    return registry[name](transform=transform, target_transform=target_transform,
+                          seed=seed, **kwargs)
 
 
 def make_sampler(dataset, type: SamplerType = SamplerType.SHARDED_INFINITE,

@@ -1,7 +1,8 @@
 """The SSL training pipeline for image folders (``dinov3_tpu/data/pipeline.py``
 ``make_train_pipeline``): dataset string -> augmented, collated batches.
-Imports PIL (through the augmentation). The multi-resolution pipeline
-waits (ROADMAP M4)."""
+Imports PIL (through the augmentation). It reads image folders only: the
+ImageNet dataset serves the evals, not yet the trainer (ROADMAP M5); the
+multi-resolution pipeline waits (ROADMAP M4)."""
 
 from __future__ import annotations
 
@@ -58,9 +59,14 @@ def make_train_pipeline(cfg, global_batch_size: int, rank: int = 0,
         raise ValueError(f"global batch {global_batch_size} not divisible by "
                          f"{world_size} hosts")
     local_batch = global_batch_size // world_size
+    dataset_str = resolve_dataset_str(cfg)
+    if dataset_str.split(":")[0] != "Folder":
+        raise NotImplementedError(
+            f"training dataset {dataset_str!r}: the trainer reads image folders "
+            "(Folder:root=...); its ImageNet and synthetic-image datasets wait "
+            "(ROADMAP M5)")
     augment = build_augmentation_from_cfg(cfg)
-    dataset = make_dataset(resolve_dataset_str(cfg), transform=augment,
-                           seed=cfg.train.seed)
+    dataset = make_dataset(dataset_str, transform=augment, seed=cfg.train.seed)
     loader = make_data_loader(
         dataset,
         batch_size=local_batch,

@@ -1,5 +1,6 @@
 """Image transforms on PIL images and numpy arrays
-(``dinov3_tpu/data/transforms.py``, the ops the SSL augmentation uses).
+(``dinov3_tpu/data/transforms.py``: the ops the SSL augmentation uses and
+the classification presets of the eval harness).
 
 Every random op takes an explicit ``np.random.Generator``, no global RNG,
 so a sample's crops are a function of (seed, sample index). The colour
@@ -230,3 +231,45 @@ def to_normalized_array(
     mean = np.asarray(mean, np.float32)
     std = np.asarray(std, np.float32)
     return (arr - mean) / std
+
+
+# -------------------------------------------------- classification presets
+
+
+def make_classification_train_transform(
+    crop_size: int = 224,
+    hflip_prob: float = 0.5,
+    jitter: ColorJitter | None = None,
+    mean=IMAGENET_MEAN,
+    std=IMAGENET_STD,
+):
+    """(rng, PIL image) -> float32 [crop, crop, 3]: random resized crop,
+    horizontal flip, optional colour jitter, normalization (the eval
+    harness's train-split transform)."""
+
+    def transform(rng: np.random.Generator, img: Image.Image) -> np.ndarray:
+        img = random_resized_crop(rng, img, crop_size)
+        img = maybe_hflip(rng, img, hflip_prob)
+        if jitter is not None:
+            img = jitter(rng, img)
+        return to_normalized_array(img, mean, std)
+
+    return transform
+
+
+def make_classification_eval_transform(
+    resize_size: int = 256,
+    crop_size: int = 224,
+    mean=IMAGENET_MEAN,
+    std=IMAGENET_STD,
+):
+    """(rng, PIL image) -> float32 [crop, crop, 3]: shorter side resized to
+    ``resize_size``, centre crop, normalization; ``rng`` is not drawn
+    from."""
+
+    def transform(rng: np.random.Generator, img: Image.Image) -> np.ndarray:
+        img = resize_shorter_side(img, resize_size)
+        img = center_crop(img, crop_size)
+        return to_normalized_array(img, mean, std)
+
+    return transform

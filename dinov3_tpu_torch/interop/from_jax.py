@@ -19,7 +19,9 @@ bottleneck]. A gradient tree of the same structure maps the same way.
 ``train_state_from_jax`` takes the leaves of a whole JAX ``TrainState``
 keyed by their ``jax.tree_util.keystr`` paths (the JAX package's local-npz
 checkpoint) and returns the student, the teacher, the Adam moments (keyed
-by the student's names), the update count and the step. bf16 leaves that
+by the student's names), the update count and the step;
+``teacher_backbone_from_jax`` takes only the EMA teacher's backbone (what
+the evals and serving restore). bf16 leaves that
 ``np.savez`` stored as 2-byte void records are read as bf16 by their bits.
 """
 
@@ -163,6 +165,32 @@ def keystr_path(key: str) -> tuple[str, ...]:
     return tuple(parts)
 
 
+def _keystr_tree(flat: Mapping[str, Any]) -> dict:
+    """``{keystr path: leaf}`` -> the nested tree of those paths."""
+    tree: dict = {}
+    for key, value in flat.items():
+        *parents, leaf = keystr_path(key)
+        node = tree
+        for p in parents:
+            node = node.setdefault(p, {})
+        node[leaf] = value
+    return tree
+
+
+TEACHER_BACKBONE = ("params", "teacher", "backbone")
+
+
+def teacher_backbone_from_jax(flat: Mapping[str, Any]) -> dict[str, torch.Tensor]:
+    """The EMA teacher's backbone of a JAX ``TrainState`` (``{keystr path:
+    array}``, other leaves ignored) -> the backbone's Meta-named
+    ``state_dict``."""
+    tree = _keystr_tree({k: v for k, v in flat.items()
+                         if keystr_path(k)[:3] == TEACHER_BACKBONE})
+    if not tree:
+        raise KeyError("no params['teacher']['backbone'] leaves in the JAX state")
+    return state_dict_from_jax(tree["params"]["teacher"]["backbone"])
+
+
 def train_state_from_jax(flat: Mapping[str, Any]) -> dict:
     """Leaves of a JAX ``TrainState`` (``{keystr path: array}``) -> {"student":
     state_dict, "teacher": state_dict, "mu": {name: tensor}, "nu": {...},
@@ -172,13 +200,7 @@ def train_state_from_jax(flat: Mapping[str, Any]) -> dict:
     count (``opt_state.adam.count``) apart; the port keeps one count for
     both, so they must agree. A Gram teacher or fp8/int8 amax rings are
     refused (ROADMAP M2, M9)."""
-    tree: dict = {}
-    for key, value in flat.items():
-        *parents, leaf = keystr_path(key)
-        node = tree
-        for p in parents:
-            node = node.setdefault(p, {})
-        node[leaf] = value
+    tree = _keystr_tree(flat)
     params, opt = tree["params"], tree["opt_state"]
     if set(params) != {"student", "teacher"}:
         raise NotImplementedError(

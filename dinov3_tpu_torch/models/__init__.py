@@ -92,7 +92,27 @@ def build_backbone(cfg, *, device="cuda", seed: int = 0) -> DinoVisionTransforme
     return model.to(device=dev, dtype=policy.param_dtype).eval()
 
 
+def build_model_for_eval(cfg, ckpt_dir: str | None = None, *, device="cuda",
+                         seed: int = 0) -> DinoVisionTransformer:
+    """The teacher backbone for feature extraction and evals, frozen, on
+    ``device``. With ``ckpt_dir`` (a trainer's ``<output-dir>/ckpt``, of
+    this package or the JAX package's local-npz kind) it holds the EMA
+    teacher's backbone of the latest finalized step, loaded strictly;
+    without, the seeded random init of ``build_backbone``."""
+    dev = resolve_device(device)
+    model = build_backbone(cfg, device="cpu", seed=seed)
+    if ckpt_dir:
+        from dinov3_tpu_torch.checkpoint import teacher_backbone_state_dict
+
+        step, state_dict = teacher_backbone_state_dict(ckpt_dir)
+        model.load_state_dict(state_dict, strict=True)
+        logging.getLogger(LOGGER_NAME).info(
+            "eval model: EMA teacher backbone of step %d from %s", step, ckpt_dir)
+    return model.requires_grad_(False).to(dev)
+
+
 __all__ = [
     "ARCHS", "DinoVisionTransformer", "backbone_kwargs_from_cfg",
-    "build_backbone", "remat_mode", "vit_large", "vit_test",
+    "build_backbone", "build_model_for_eval", "remat_mode", "vit_large",
+    "vit_test",
 ]

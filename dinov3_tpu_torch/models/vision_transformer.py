@@ -2,7 +2,8 @@
 
 Patch embed -> [CLS + storage tokens + patches] -> RoPE-attention blocks
 -> final norms. Ported: the forward over same-resolution images with the
-iBOT mask token (``forward``: the teacher's and the serve path's), the
+iBOT mask token (``forward``: the teacher's and the serve path's), the eval-time
+features of chosen blocks (``get_intermediate_layers``), the
 crop-packed training forward of global and local crops in one block stack
 (``forward(..., local_crops=...)``, with the step's drop-path plan), and
 the serve forward over host-packed multi-image planes
@@ -187,13 +188,18 @@ class DinoVisionTransformer(nn.Module):
         prefix = self._prefix_table(tokens.dtype)
         return torch.cat([prefix[None].expand(B, -1, -1), tokens], dim=1), (h, w)
 
-    def _run_blocks(self, x, rope, seg=None, plan=None, train=False):
+    def _run_blocks(self, x, rope, seg=None, plan=None, train=False,
+                    collect: dict | None = None):
         """The block stack; a training call that builds a graph runs each
-        block under ``self.remat``'s activation checkpointing."""
+        block under ``self.remat``'s activation checkpointing. ``collect``:
+        a dict keyed by block indices, each filled with that block's
+        output."""
         remat = self.remat if train and torch.is_grad_enabled() else "none"
         for i, blk in enumerate(self.blocks):
             x = remat_forward(blk, remat)(x, rope=rope, seg=seg,
                                           plan=plan_layer_slice(plan, i))
+            if collect is not None and i in collect:
+                collect[i] = x
         return x
 
     def _check_plan(self, train: bool, plan) -> dict | None:
@@ -318,6 +324,53 @@ class DinoVisionTransformer(nn.Module):
         out = self._run_blocks(tok, self._serve_rope(coords), seg=seg)
         cls_norm = self.cls_norm if self.untie_cls_and_patch_norms else self.norm
         return {"cls_rows": cls_norm(out), "patch_rows": self.norm(out)}
+
+    def get_intermediate_layers(self, x: torch.Tensor, n=1, *,
+                                reshape: bool = False,
+                                return_class_token: bool = False,
+                                return_extra_tokens: bool = False,
+                                norm: bool = True) -> tuple:
+        """Eval-time features of chosen blocks, for images x [B, H, W, C].
+
+        ``n``: an int takes the last n blocks, a sequence the blocks at
+        those indices (out-of-range indices raise ``ValueError``). With
+        ``norm`` each output is normed as the final norms do: ``norm``,
+        or ``cls_norm`` on the prefix tokens and ``norm`` on the patches
+        under ``untie_cls_and_patch_norms``. Returns a tuple, one entry a
+        block: the patch tokens [B, T, D] (``reshape``: [B, D, h, w]),
+        paired with the CLS token [B, D] and/or the storage tokens
+        [B, S, D] when asked for."""
+        take = (list(range(self.n_blocks - n, self.n_blocks))
+                if isinstance(n, int) else list(n))
+        bad = [i for i in take if not 0 <= i < self.n_blocks]
+        if bad:
+            raise ValueError(
+                f"layer indices {bad} out of range for {self.n_blocks} blocks")
+        tokens, (h, w) = self._embed(x)
+        collected = dict.fromkeys(take)
+        self._run_blocks(tokens, self._rope_table(h, w, x.device),
+                         collect=collected)
+        outputs = [collected[i] for i in take]
+        k = self.n_prefix
+        if norm:
+            if self.untie_cls_and_patch_norms:
+                outputs = [torch.cat([self.cls_norm(o[:, :k]), self.norm(o[:, k:])],
+                                     dim=1) for o in outputs]
+            else:
+                outputs = [self.norm(o) for o in outputs]
+        class_tokens = [o[:, 0] for o in outputs]
+        extra = [o[:, 1:k] for o in outputs]
+        patches = [o[:, k:] for o in outputs]
+        if reshape:
+            B = x.shape[0]
+            patches = [p.reshape(B, h, w, -1).permute(0, 3, 1, 2) for p in patches]
+        if return_class_token and return_extra_tokens:
+            return tuple(zip(patches, class_tokens, extra))
+        if return_class_token:
+            return tuple(zip(patches, class_tokens))
+        if return_extra_tokens:
+            return tuple(zip(patches, extra))
+        return tuple(patches)
 
 
 # ---------------- size ladder ----------------

@@ -1,18 +1,18 @@
 """Weights -> bf16 serving model (``dinov3_tpu/serve/weights.py``).
 
 The serving model takes a Meta-named ``state_dict`` (released weights, or
-a JAX tree bridged by ``interop/from_jax.py``) or, given none, a seeded
+a JAX tree bridged by ``interop/from_jax.py``), the EMA teacher of a
+training checkpoint directory (``ckpt_dir``), or, given neither, a seeded
 random init. Every floating parameter is then cast once to the serving
 dtype, round-to-nearest-even like the JAX cast, so the same weights always
-give the same serving model bitwise. Restoring a training checkpoint
-comes with the checkpoint slice.
+give the same serving model bitwise.
 """
 
 from __future__ import annotations
 
 import torch
 
-from dinov3_tpu_torch.models import build_backbone
+from dinov3_tpu_torch.models import build_model_for_eval
 from dinov3_tpu_torch.ops.common import resolve_device
 
 
@@ -24,11 +24,16 @@ def cast_serving_tree(state_dict: dict, dtype=torch.bfloat16) -> dict:
 
 
 def load_serving_model(cfg, state_dict: dict | None = None, *,
-                       device="cuda", seed: int = 0, dtype=torch.bfloat16):
-    """The configured backbone with ``state_dict`` loaded (strictly) or a
-    random init from ``seed``, cast to ``dtype``, on ``device``."""
+                       ckpt_dir: str | None = None, device="cuda", seed: int = 0,
+                       dtype=torch.bfloat16):
+    """The configured backbone with ``state_dict`` loaded (strictly), or
+    the EMA teacher of a training checkpoint under ``ckpt_dir``
+    (``build_model_for_eval``), or a random init from ``seed``; cast to
+    ``dtype``, on ``device``."""
+    if state_dict is not None and ckpt_dir:
+        raise ValueError("pass state_dict or ckpt_dir, not both")
     dev = resolve_device(device)
-    model = build_backbone(cfg, device="cpu", seed=seed)
+    model = build_model_for_eval(cfg, ckpt_dir, device="cpu", seed=seed)
     if state_dict is not None:
         model.load_state_dict(state_dict)
     model.load_state_dict(cast_serving_tree(model.state_dict(), dtype),

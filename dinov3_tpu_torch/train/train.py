@@ -22,8 +22,15 @@ checkpoint is saved every ``checkpointing.period`` iterations and at the
 last. Set-up garbage is collected once and frozen, so the collector's
 later passes do not walk it.
 
-Refused at start, each naming the ROADMAP item it waits for: evals inside
-the run (M6), distillation, multidistillation, high-res fine-tuning and
+Every ``evaluation.eval_period_iterations`` iterations the EMA teacher's
+backbone is evaluated in place (``evals.do_eval``: k-NN and a linear
+probe on its frozen features); each result is appended to
+``<output-dir>/evals.json`` and its seconds are kept out of the
+``--benchmark`` step times. The eval reads the teacher and draws from no
+generator the step uses: a run's losses are those of the same run
+without evals.
+
+Refused at start, each naming the ROADMAP item it waits for: distillation, multidistillation, high-res fine-tuning and
 pretrained weights (M10), the Gram anchor and its refresh (M12), the
 profiler, tensorboard and NaN-debug flags (M11), ``--dump-weights`` (M5),
 multi-resolution crop lists (M4) and an elastic ``--resume-topology``
@@ -137,12 +144,8 @@ def refuse_waiting(cfg, args, total_iters: int) -> None:
     for attr, msg in _WAITING_FLAGS:
         if getattr(args, attr):
             raise NotImplementedError(msg)
-    eval_period = int(cfg.evaluation.get("eval_period_iterations", 0) or 0)
     s = cfg.student
     waits = [
-        (not args.self_check and 0 < eval_period <= total_iters,
-         f"evaluation.eval_period_iterations={eval_period} falls inside the "
-         f"run's {total_iters} iterations: evals wait (ROADMAP M6)"),
         (bool(cfg.distillation.enabled), "distillation waits (ROADMAP M10)"),
         (bool(cfg.multidistillation.enabled),
          "multidistillation waits (ROADMAP M10)"),
@@ -194,6 +197,26 @@ def resolved_engine(setup) -> dict:
             "centering": meta.centering, "k_tile": meta.loss_k_tile,
             "remat": meta.student["backbone"].remat,
             "accum_steps": int(setup.cfg.optim.get("accum_steps", 1) or 1)}
+
+
+def run_eval(cfg, teacher_backbone, it: int, out_dir: str) -> dict:
+    """``do_eval`` on the teacher's backbone after iteration ``it``; its
+    record ``{"iteration": it + 1, **results}`` is appended to
+    ``<out_dir>/evals.json`` and returned with the eval's seconds (the
+    first eval's import of the eval modules, PIL among them, included)."""
+    device = next(teacher_backbone.parameters()).device
+    if device.type == "cuda":  # the step's queued work stays out of the eval's time
+        torch.cuda.synchronize(device)
+    t0 = time.perf_counter()
+    from dinov3_tpu_torch.evals import do_eval
+
+    results = do_eval(cfg, teacher_backbone)
+    seconds = time.perf_counter() - t0
+    record = {"iteration": it + 1, **results}
+    with open(f"{out_dir}/evals.json", "a") as f:
+        f.write(json.dumps(record) + "\n")
+    logger.info("eval at iteration %d: %s in %.1f s", it + 1, results, seconds)
+    return {**record, "seconds": seconds}
 
 
 class _GcTimes:
@@ -278,6 +301,8 @@ def do_train(cfg, args) -> dict:
         metric_logger = MetricLogger(output_file=f"{out_dir}/training_metrics.json")
         timer = StepTimer(args.benchmark, total_iters, device)
         period = int(cfg.checkpointing.period)
+        eval_period = int(cfg.evaluation.get("eval_period_iterations", 0) or 0)
+        evals = []
         nan_streak = 0
         last_loss = math.nan
         saves = []
@@ -315,6 +340,10 @@ def do_train(cfg, args) -> dict:
                                  teacher_temp=sched["teacher_temp"], **metrics)
             if timer.active(it):
                 timer.mark()
+            if eval_period and (it + 1) % eval_period == 0:
+                evals.append(run_eval(cfg, setup.meta.teacher["backbone"], it, out_dir))
+                metric_logger.update(**{k: evals[-1][k] for k in ("knn_top1", "linear_top1")})
+                timer.exclude(evals[-1]["seconds"])
             if (it + 1) % period == 0 or it + 1 == total_iters:
                 saves.append(ckpt.save(it + 1, state))
                 timer.exclude(saves[-1]["seconds"])
@@ -331,7 +360,7 @@ def do_train(cfg, args) -> dict:
 
     result.update({
         "final_loss": last_loss, "iterations": state.step, "device": str(device),
-        "saves": saves, "gc": gc_times.summary(),
+        "saves": saves, "evals": evals, "gc": gc_times.summary(),
         "launches": {k: kern.launches for k, kern in KERNELS.items()},
     })
     if device.type == "cuda":

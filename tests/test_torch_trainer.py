@@ -396,7 +396,6 @@ def test_ref_losses_compare_against_a_file_the_jax_recorder_wrote(uninterrupted,
     (["--debug-nans"], [], "M11"),
     (["--dump-weights", "w.npz"], [], "M5"),
     (["--resume-topology", "memory"], [], "M12"),
-    ([], ["evaluation.eval_period_iterations=2"], "M6"),
     ([], ["multidistillation.enabled=true"], "M10"),
     ([], ["hrft.enabled=true"], "M10"),
     ([], ["gram.ckpt=/nowhere"], "M12"),
