@@ -72,6 +72,21 @@ I. the evaluation path at ViT-L/16: feature extraction with seeded
    process, the teacher it restores compared bitwise (I4); and evals
    inside a trainer CLI run at B=32, their launches on top of the steps'
    and the step times within phase G's band (I5).
+J. the serving plane at ViT-L/16 (run before I, which deletes phase G's
+   checkpoint), through ``dinov3_tpu_torch/serve/bench.py``'s functions
+   on the default ``serve:`` block: the packed engine and both oracles
+   over the same 256 mixed_ragged requests after a disjoint warm-up draw
+   (J1: sustained img/s, a rated Poisson replay at 0.7 x the packed rate
+   with exact p50/p99 overall and per SLO class and the observer's
+   histograms within a bucket of them, packed features within 2^-5 of
+   per-image ones, compile counts, one fetch and one synchronizing call
+   a pack, K1/K4 launches, device-busy profiles); int8 against bf16 (J2:
+   resident bytes, drift, best of 3 drains); the fleet with an int8 fast
+   lane derived from the warm draw and the cache at a hit rate of 0.5,
+   every hit bitwise its miss (J3); ``build_serve_engine(ckpt_dir=...)``
+   on phase G's checkpoint, ``serve.continuous_packing=false`` and the
+   bench CLI's ``--smoke`` as a child process (J4); K1 at the oracle's
+   dense shapes, N = 37, 193, 1025 (J5).
 
 Prints the kernel table as one JSON line, the card's name and power
 limit, and as its last line ``{"ok": true, "device": {...}}``. Any
@@ -99,7 +114,7 @@ HBM_BYTES_S = 3.35e12       # H100 SXM device memory rate
 BF16_TC_FLOP_S = 989e12     # H100 SXM dense bf16 tensor-core peak
 FP32_FLOP_S = 67e12         # H100 SXM fp32 outside the tensor cores
 L2_BYTES = 50 * 2 ** 20     # H100 L2 cache
-# the mixed_ragged traffic bands of scripts/bench_serve.py:
+# the mixed_ragged traffic bands of dinov3_tpu_torch/serve/bench.py:
 # (probability, (min_px, max_px)), H and W drawn on the patch grid
 MIXED_RAGGED = [(0.70, (96, 256)), (0.20, (208, 320)), (0.10, (336, 512))]
 # images a step in the recipe as written (configs/train/vitl16_im1k.yaml)
@@ -144,14 +159,9 @@ def check(ok: bool, msg: str) -> None:
 
 def make_mix(rng, bands, n: int, grid: int) -> list:
     """n seeded [H, W, 3] float32 images from the banded distribution."""
-    probs = np.array([p for p, _ in bands])
-    out = []
-    for b in rng.choice(len(bands), size=n, p=probs / probs.sum()):
-        lo, hi = bands[int(b)][1]
-        sizes = np.arange(lo, hi + 1, grid)
-        h, w = rng.choice(sizes), rng.choice(sizes)
-        out.append(rng.standard_normal((int(h), int(w), 3)).astype(np.float32))
-    return out
+    from dinov3_tpu_torch.serve.bench import make_mix as draw
+
+    return draw(rng, bands, n, grid)
 
 
 def cold_ms(fn, inputs: list, iters: int = 20) -> float:
@@ -1070,10 +1080,10 @@ def phase_e() -> tuple[dict, dict]:
                       "peak_gib": peak}
 
 
-def sync_points(setup, state, dbatch, label: str = "E") -> None:
-    """The calls in one step's launch (``launch_fn``, before its metrics
-    are read) that make the host wait for the card, from
-    ``torch.cuda.set_sync_debug_mode``'s warnings, by file and line."""
+def sync_sites(fn):
+    """The calls in fn() that make the host wait for the card, from
+    ``torch.cuda.set_sync_debug_mode``'s warnings, by file and line of the
+    port's innermost frame (a Counter); fn's result."""
     import threading
     import traceback
     import warnings
@@ -1099,12 +1109,21 @@ def sync_points(setup, state, dbatch, label: str = "E") -> None:
     torch.cuda.synchronize()
     with warnings.catch_warnings():
         warnings.simplefilter("always")
-        warnings.showwarning = record
+        # switched on before the recorder: the switch warns of itself
         torch.cuda.set_sync_debug_mode("warn")
+        warnings.showwarning = record
         try:
-            _, pending = setup.launch_fn(state, dbatch, setup.scalars(state.step))
+            out = fn()
         finally:
             torch.cuda.set_sync_debug_mode(0)
+    return sites, out
+
+
+def sync_points(setup, state, dbatch, label: str = "E") -> None:
+    """The synchronizing calls in one step's launch (``launch_fn``, before
+    its metrics are read), by file and line."""
+    sites, (_, pending) = sync_sites(
+        lambda: setup.launch_fn(state, dbatch, setup.scalars(state.step)))
     pending.read()
     print(f"[{label}] synchronizing calls in one step launch: {sum(sites.values())}"
           + "".join(f"; {n} x {site}" for site, n in sites.most_common(12)))
@@ -2099,6 +2118,390 @@ def phase_i5(g_step_ms: list) -> None:
     print(f"[I5] step times within phase G's band ({lo:.1f}-{hi:.1f} ms, 10 % each way)")
 
 
+# ---------------------------------------------------------------- phase J
+
+J_DIR = os.path.join(REPO, "build", "phase_j")
+# measured requests of each serving-plane draw (and as many warm-up ones)
+J_N = 256
+J_SLOS = ("interactive", "batch")
+# launches of one ViT-L/16 forward: a packed pack (K4 adds the CLS norm
+# applied beside the patch norm) and a plain forward of the oracles
+PACK_LAUNCHES = {"K1": 24, "K2": 0, "K3": 0, "K4": 50, "K5": 0}
+FORWARD_LAUNCHES = {"K1": 24, "K4": 49}
+
+
+def close_features(label: str, got: dict, want: dict) -> float:
+    """Per request, CLS and pooled features within 2^-5 of the reference's
+    magnitude (phase C's tolerance); the worst error as a share of it."""
+    check(sorted(got) == sorted(want), f"[{label}] other requests")
+    worst = 0.0
+    for i, w in want.items():
+        for name in ("cls_feature", "pooled_patch_feature"):
+            a, b = getattr(got[i], name), getattr(w, name)
+            tol = 2.0 ** -5 * max(float(np.abs(b).max()), 1.0)
+            err = float(np.abs(a - b).max())
+            check(np.isfinite(a).all() and err <= tol,
+                  f"[{label}] request {i} {name}: {err:.3e} > {tol:.3e}")
+            worst = max(worst, err / tol)
+    return worst
+
+
+def hist_within_a_bucket(label: str, obs_slo: dict, exact_slo: dict) -> None:
+    """Each SLO class's streaming-histogram p50/p99 within one bucket width
+    (a ratio) of the exact nearest-rank values of the same replay."""
+    for slo, exact in exact_slo.items():
+        h = obs_slo[slo]
+        check(h["n"] == exact["n"], f"[{label}] {slo}: histogram n {h['n']} != {exact['n']}")
+        for q in ("p50", "p99"):
+            ratio = h[q] / exact[f"{q}_ms"]
+            check(1 / h["width_factor"] <= ratio <= h["width_factor"],
+                  f"[{label}] {slo} {q}: histogram {h[q]:.3f} vs exact "
+                  f"{exact[f'{q}_ms']:.3f} ms")
+
+
+def lat_line(lat: dict) -> str:
+    return (f"p50 {lat['p50_ms']:.2f} / p99 {lat['p99_ms']:.2f} ms (n {lat['n']}); "
+            + "; ".join(f"{slo} p50 {v['p50_ms']:.2f} / p99 {v['p99_ms']:.2f} ms (n {v['n']})"
+                        for slo, v in lat["by_slo"].items()))
+
+
+def phase_j(cfg) -> dict:
+    """The serving plane at ViT-L/16 on the card, through
+    ``dinov3_tpu_torch/serve/bench.py``'s functions: the three arms (J1),
+    int8 against bf16 (J2), the fleet with the cache (J3), the entry
+    points (J4) and K1 at the oracle's dense shapes (J5). Returns its
+    counted launches and K1's oracle rows."""
+    import torch
+
+    from dinov3_tpu_torch.serve import load_serving_model, serve_layout_from_cfg
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    shutil.rmtree(J_DIR, ignore_errors=True)
+    os.makedirs(J_DIR)
+    t0 = time.perf_counter()
+    model = load_serving_model(cfg, device="cuda", seed=0)
+    layout = serve_layout_from_cfg(cfg)
+    check(model.n_blocks == 24 and model.embed_dim == 1024 and model.num_heads == 16
+          and (layout.rows, layout.row_tokens, layout.max_segments_per_row) == (4, 2050, 8),
+          "[J] not the ViT-L/16 serving slice")
+    print(f"[J] ViT-L/16 bf16 serving model built in {time.perf_counter() - t0:.1f} s")
+    rng = np.random.default_rng(7)
+    warm = make_mix(rng, MIXED_RAGGED, J_N, layout.patch_size)
+    meas = make_mix(rng, MIXED_RAGGED, J_N, layout.patch_size)
+    try:
+        out = {"launches": phase_j1(cfg, model, layout, warm, meas, rng)}
+        phase_j2(model, layout, warm, meas)
+        phase_j3(cfg, model, layout, warm, meas, rng)
+        del model
+        gc.collect()
+        torch.cuda.empty_cache()
+        phase_j4(cfg)
+        out["k1_oracle"] = phase_j5()
+    finally:
+        shutil.rmtree(J_DIR, ignore_errors=True)
+    print(f"[J] serving plane done in {time.perf_counter() - t0:.1f} s")
+    return out
+
+
+def phase_j1(cfg, model, layout, warm, meas, rng) -> dict:
+    """Three arms over identical traffic: sustained img/s, the rated
+    replay at 0.7 x the packed rate (exact p50/p99 overall and per SLO
+    class, the histograms within a bucket), features, compile counts,
+    fetches and synchronizing calls a pack, launches."""
+    import torch
+
+    from dinov3_tpu_torch.configs.config import serve_obs_kwargs
+    from dinov3_tpu_torch.serve import OracleServeEngine, PackedServeEngine
+    from dinov3_tpu_torch.serve.bench import (
+        _serve_summary,
+        drain_all,
+        measure_arm,
+    )
+    from dinov3_tpu_torch.telemetry import ServeObserver, SpanTracer
+
+    engines = {"packed": PackedServeEngine(model, layout, warn=False),
+               "oracle_rectangular": OracleServeEngine(model, layout),
+               "oracle_per_image": OracleServeEngine(model, layout, mode="per_image")}
+    packed = engines["packed"]
+    drain_all(packed, warm)
+    wall, _ = drain_all(packed, warm)
+    rate = 0.7 * J_N / wall
+    trace = [(float(a), im) for a, im in
+             zip(np.cumsum(rng.exponential(1.0 / rate, J_N)), meas)]
+    print(f"[J1] mixed_ragged, {J_N} requests a draw: packed probe "
+          f"{J_N / wall:.2f} img/s; rated replay offered at {rate:.2f} img/s")
+    tracer = SpanTracer(J_DIR, role="serve")
+    recs, responses, counted = {}, {}, {}
+    for arm, eng in engines.items():
+        obs = ServeObserver(tracer, layout, slo_classes=J_SLOS, **serve_obs_kwargs(cfg))
+        obs.set_labels(arm=arm, mix="mixed_ragged")
+        packs0 = eng.packs_run
+        torch.cuda.synchronize()
+        reset_counts()
+        rec, resp = measure_arm(eng, warm, meas, trace, _serve_summary,
+                                lambda w: None, observer=obs)
+        counted[arm] = read_counts()
+        recs[arm], responses[arm] = rec, {r.request_id: r for r in resp}
+        serve = rec["serve"]
+        print(f"[J1] {arm}: {rec['throughput']['images_per_s']:.2f} img/s "
+              f"({rec['throughput']['wall_s']:.3f} s drain); rated "
+              f"{lat_line(rec['latency'])}; compile_count {serve['compile_count']} "
+              f"(+{rec['compile_growth_during_measurement']} while measured, "
+              f"{rec['novel_shapes_after_warmup']} novel shapes); pad waste "
+              f"{serve['pad_waste']}; fetches {serve['host_sync']['fetches']} "
+              f"({serve['host_sync']['blocked_ms']:.1f} ms blocked) over "
+              f"{serve['obs']['packs']} packs; launches {counted[arm]}")
+        hist_within_a_bucket(f"J1 {arm}", serve["obs"]["slo"], rec["latency"]["by_slo"])
+        print(f"[J1] {arm}: histogram p50/p99 " + "; ".join(
+            f"{slo} {h['p50']:.2f} / {h['p99']:.2f} ms" for slo, h in serve["obs"]["slo"].items()
+            if h["n"]) + " (within one bucket width of the exact values)")
+        if arm == "packed":
+            packs = eng.packs_run - packs0
+            check(serve["compile_count"] == 1, "[J1] packed compile_count != 1")
+            check(serve["host_sync"]["fetches"] == serve["obs"]["packs"],
+                  f"[J1] packed: {serve['host_sync']} for {serve['obs']['packs']} packs")
+            want = {k: v * packs for k, v in PACK_LAUNCHES.items()}
+            check(counted[arm] == want, f"[J1] packed launches {counted[arm]} != {want}")
+        else:
+            k1, k4 = counted[arm]["K1"], counted[arm]["K4"]
+            check(k1 > 0 and k1 % 24 == 0 and k4 * 24 == k1 * 49
+                  and counted[arm]["K2"] == counted[arm]["K3"] == counted[arm]["K5"] == 0,
+                  f"[J1] {arm} launches {counted[arm]}: not whole forwards")
+            print(f"[J1] {arm}: {k1 // 24} forwards, "
+                  f"{serve['host_sync']['fetches']} fetches")
+    tracer.close()
+    worst = close_features("J1 packed vs oracle_per_image", responses["packed"],
+                           responses["oracle_per_image"])
+    rect = close_features("J1 oracle_rectangular vs oracle_per_image",
+                          responses["oracle_rectangular"], responses["oracle_per_image"])
+    print(f"[J1] packed vs oracle_per_image over {J_N} requests: worst "
+          f"{worst:.3f} of the tolerance; rectangular vs per-image {rect:.3f}")
+    for arm in ("oracle_rectangular", "oracle_per_image"):
+        print(f"[J1] packed / {arm}: x{recs['packed']['throughput']['images_per_s'] / recs[arm]['throughput']['images_per_s']:.3f} img/s")
+    # the synchronizing calls of one packed pack, as phase E counts them
+    for i, im in enumerate(meas[:64]):
+        packed.submit(im, request_id=i)
+    sites, served = sync_sites(packed.flush)
+    while packed.queue_len:
+        packed.flush()
+    print(f"[J1] synchronizing calls in one pack ({len(served)} requests): "
+          f"{sum(sites.values())}" + "".join(f"; {n} x {s}" for s, n in sites.most_common(6)))
+    check(sum(sites.values()) == 1, f"[J1] a pack synchronizes {dict(sites)}")
+    # where an oracle forward's time goes: host-bound dispatch or device
+    for arm in ("oracle_per_image", "oracle_rectangular"):
+        def run(eng=engines[arm]):
+            for i, im in enumerate(meas[:32]):
+                eng.submit(im, request_id=i)
+            eng.flush()
+        device_busy(run, f"J1 {arm} 32 requests")
+    device_busy(lambda: drain_all(packed, meas[:64]), "J1 packed 64 requests")
+    return {k: sum(c[k] for c in counted.values()) for k in KERNELS}
+
+
+def phase_j2(model, layout, warm, meas) -> None:
+    """int8 against bf16, packed, on one draw: resident bytes, drift,
+    best of 3 alternated drains, feature agreement."""
+    import torch
+
+    from dinov3_tpu_torch.serve import (
+        PackedServeEngine,
+        quant_feature_drift,
+        quant_summary,
+        quantize_serving_model,
+    )
+    from dinov3_tpu_torch.serve.bench import drain_all, feature_agreement
+
+    torch.cuda.synchronize()
+    a0 = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    qmodel = quantize_serving_model(model)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    resident = torch.cuda.memory_allocated() - a0
+    qs, bs = quant_summary(qmodel), quant_summary(model)
+    print(f"[J2] int8 model built in {build_s:.1f} s (host quantization): "
+          f"{qs['quantized_kernels']} int8 weights; resident on the card {resident} B "
+          f"against quant_summary weight_bytes {qs['weight_bytes']} and the bf16 "
+          f"model's {bs['weight_bytes']} B: {resident / bs['weight_bytes']:.4f} "
+          f"(bytes_ratio {qs['bytes_ratio']})")
+    # the allocator does not split a block whose remainder is under 1 MiB,
+    # so ~100 weights of 1-4 MiB hold a few MiB more than their bytes; a
+    # dense bf16 copy left on the card would add about 600 MB
+    check(qs["weight_bytes"] <= resident <= 1.02 * qs["weight_bytes"],
+          f"[J2] resident {resident} B vs weight_bytes {qs['weight_bytes']}")
+    check(qs["bytes_ratio"] < 0.55, f"[J2] bytes_ratio {qs['bytes_ratio']}")
+    drift = quant_feature_drift(model, qmodel, px=224)
+    print(f"[J2] drift probe at 224 px: {drift}")
+    check(drift["cls_max_abs_diff"] <= 0.05, f"[J2] int8 drift {drift}")
+    eng = {"bf16": PackedServeEngine(model, layout, warn=False),
+           "int8": PackedServeEngine(qmodel, layout, warn=False)}
+    check(eng["int8"].arm == "packed_int8", "[J2] int8 arm")
+    for e in eng.values():
+        drain_all(e, warm)
+    best, resp, counted = {}, {}, {}
+    for _ in range(3):
+        for name, e in eng.items():
+            packs0 = e.packs_run
+            reset_counts()
+            wall, rs = drain_all(e, meas)
+            counted[name] = (read_counts(), e.packs_run - packs0)
+            best[name] = max(best.get(name, 0.0), J_N / wall)
+            resp[name] = rs
+    agree = feature_agreement(resp["bf16"], resp["int8"])
+    for name, (c, packs) in counted.items():
+        check(c == {k: v * packs for k, v in PACK_LAUNCHES.items()},
+              f"[J2] {name} launches {c} over {packs} packs")
+    print(f"[J2] best of 3 drains: bf16 {best['bf16']:.2f} img/s, int8 "
+          f"{best['int8']:.2f} img/s (int8/bf16 {best['int8'] / best['bf16']:.4f}); "
+          f"features int8 vs bf16 {agree}")
+    del eng, qmodel
+
+
+def phase_j3(cfg, model, layout, warm, meas, rng) -> None:
+    """The fleet: an int8 fast lane for interactive traffic on the
+    envelope a LiveMixTracker derives from the warm draw, beside the bf16
+    row, the cache in front; a rated replay at a hit rate of 0.5 with the
+    cache audited bitwise."""
+    import torch
+
+    from dinov3_tpu_torch.configs.config import serve_obs_kwargs
+    from dinov3_tpu_torch.serve import build_serve_fleet
+    from dinov3_tpu_torch.serve.bench import (
+        derive_fast_envelope,
+        fleet_drain,
+        fleet_engines_from_envelope,
+        fleet_rated_replay,
+        repeat_trace,
+    )
+    from dinov3_tpu_torch.telemetry import ServeObserver
+
+    env = derive_fast_envelope(warm, layout)
+    fcfg = copy.deepcopy(cfg)
+    fcfg.serve.fleet.engines = fleet_engines_from_envelope(env)
+    t0 = time.perf_counter()
+    router = build_serve_fleet(fcfg, model.state_dict(), device="cuda", warn=False)
+    print(f"[J3] fleet built in {time.perf_counter() - t0:.1f} s: " + ", ".join(
+        f"{s.name} ({s.engine.arm}, {s.engine.layout.rows} x {s.engine.layout.row_tokens}, "
+        f"{s.engine.layout.max_segments_per_row} slots, slo {s.slo_classes})"
+        for s in router.specs) + f"; drift probe {router.quant_drift}")
+    check(router.compile_count == len(router.specs) == 2, "[J3] compile count")
+    check(router.specs[0].engine.model is not router.specs[1].engine.model
+          and router.specs[0].fingerprint != router.specs[1].fingerprint,
+          "[J3] the int8 and bf16 engines share a model")
+    router.observer = ServeObserver(None, layout, slo_classes=(), **serve_obs_kwargs(cfg))
+    wall, _ = fleet_drain(router, warm, layout)
+    rate = 0.7 * J_N / wall
+    router.cache.clear(reset_counters=True)
+    seq = repeat_trace(rng, meas, J_N, 0.5)
+    trace = [(float(a), im) for a, im in zip(np.cumsum(rng.exponential(1.0 / rate, J_N)), seq)]
+    responses, audit = fleet_rated_replay(router, trace, layout)
+    stats = router.cache.stats()
+    fin = router.finalize()
+    by_key: dict = {}
+    for r in responses:
+        by_key.setdefault(f"{r.engine}/{r.slo}", []).append(r.latency_s)
+    from dinov3_tpu_torch.serve.bench import _lat_summary
+
+    print(f"[J3] cold-cache fleet drain {J_N / wall:.2f} img/s; replay at {rate:.2f} img/s, "
+          f"hit rate 0.5: measured {stats['hit_rate']}, {audit['hits']} hits, "
+          f"{audit['bitwise_failures']} not bitwise their miss; routes {fin['route_counts']}; "
+          f"compile_count_total {fin['compile_count_total']}")
+    for key, lats in sorted(by_key.items()):
+        s = _lat_summary(lats)
+        print(f"[J3]   {key}: p50 {s['p50_ms']:.2f} / p99 {s['p99_ms']:.2f} ms (n {s['n']})")
+    check(len(responses) == J_N and audit["hits"] > 0 and audit["bitwise_failures"] == 0,
+          f"[J3] cache audit {audit}")
+    check(fin["compile_count_total"] == fin["n_engines"] == 2, f"[J3] {fin}")
+    del router
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def phase_j4(cfg) -> None:
+    """The entry points: ``build_serve_engine(cfg, ckpt_dir=...)`` on
+    phase G's step-4 checkpoint, bitwise the engine over
+    ``load_serving_model(cfg, ckpt_dir=...)``; ``continuous_packing=false``
+    builds the oracle ``serve.oracle`` names; the bench CLI's smoke on the
+    card as a child process."""
+    import torch
+
+    from dinov3_tpu_torch.configs import apply_dot_overrides
+    from dinov3_tpu_torch.serve import (
+        OracleServeEngine,
+        PackedServeEngine,
+        build_serve_engine,
+        load_serving_model,
+        serve_layout_from_cfg,
+    )
+
+    check(os.path.isdir(I_CKPT), f"[J4] phase G's checkpoint is not under {I_CKPT}")
+    images = make_mix(np.random.default_rng(9), MIXED_RAGGED, 32, 16)
+    t0 = time.perf_counter()
+    eng = build_serve_engine(cfg, ckpt_dir=I_CKPT, device="cuda", warn=False)
+    got = serve_requests(eng, images)
+    build_s = time.perf_counter() - t0
+    del eng
+    model = load_serving_model(cfg, ckpt_dir=I_CKPT, device="cuda")
+    want = serve_requests(PackedServeEngine(model, serve_layout_from_cfg(cfg), warn=False),
+                          images)
+    same = all(np.array_equal(got[i].cls_feature, w.cls_feature)
+               and np.array_equal(got[i].pooled_patch_feature, w.pooled_patch_feature)
+               for i, w in want.items())
+    print(f"[J4] build_serve_engine(ckpt_dir=step 4) and 32 requests in {build_s:.1f} s: "
+          f"bitwise the engine over load_serving_model(ckpt_dir): {same}")
+    check(sorted(got) == sorted(want) == list(range(32)) and same,
+          "[J4] ckpt_dir build differs")
+    ocfg = copy.deepcopy(cfg)
+    apply_dot_overrides(ocfg, ["serve.continuous_packing=false", "serve.oracle=per_image"])
+    oracle = build_serve_engine(ocfg, model.state_dict(), device="cuda", warn=False)
+    check(isinstance(oracle, OracleServeEngine) and oracle.mode == "per_image",
+          "[J4] continuous_packing=false did not build the per_image oracle")
+    served = serve_requests(oracle, images[:4])
+    worst = close_features("J4 per_image oracle vs packed", {i: want[i] for i in served},
+                           served)
+    print(f"[J4] serve.continuous_packing=false -> {oracle.arm}; 4 requests within "
+          f"{worst:.3f} of the packed tolerance")
+    del model, oracle
+    gc.collect()
+    torch.cuda.empty_cache()
+    out = os.path.join(J_DIR, "serve_bench.json")
+    cmd = [sys.executable, "-m", "dinov3_tpu_torch.serve.bench", "--smoke",
+           "--out", out, "--obs-dir", J_DIR]
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, cwd=REPO, capture_output=True, text=True, timeout=300)
+    wall = time.perf_counter() - t0
+    if proc.returncode != 0:
+        tail = (proc.stdout + proc.stderr).splitlines()[-40:]
+        raise SmokeFailure(f"[J4] bench --smoke: exit {proc.returncode}\n" + "\n".join(tail))
+    with open(out) as f:
+        rec = json.load(f)
+    mix = rec["mixes"]["mixed_ragged"]
+    print(f"[J4] python -m dinov3_tpu_torch.serve.bench --smoke on the card: {wall:.1f} s; "
+          f"{rec['arch']} backend {rec['backend']}; mixed_ragged packed "
+          f"{mix['packed']['throughput']['images_per_s']} img/s, x"
+          f"{mix['speedup_vs_rectangular']} rectangular, x{mix['speedup_vs_per_image']} "
+          f"per-image; features vs per-image {mix['features_vs_oracle_per_image']}")
+    check(rec["backend"] == "cuda" and rec["packed_compile_count"] == 1
+          and set(rec["mixes"]) == {"uniform_224", "mixed_ragged", "heavy_tail"},
+          f"[J4] bench record {sorted(rec)}")
+
+
+def phase_j5() -> dict:
+    """K1 with no segment ids at the oracle's dense shapes: 96 px (N 37),
+    96 x 512 px (N 193), and 512 px (N 1025) at a batch of 2."""
+    import torch
+
+    g = torch.Generator().manual_seed(11)
+    rows = {}
+    for B, N in ((1, 37), (1, 193), (2, 1025)):
+        qkv = torch.randn(B, N, 3 * 1024, generator=g).to("cuda", torch.bfloat16)
+        q, k, v = (qkv[..., i * 1024:(i + 1) * 1024].reshape(B, N, 16, 64) for i in range(3))
+        rows[f"N={N}"] = check_flash(q.contiguous(), k.contiguous(), v, None,
+                                     f"oracle [{B}x16, {N}, 64] bf16 no seg", time_it=True)
+    return rows
+
+
 # ---------------------------------------------------------------- main
 
 def main() -> int:
@@ -2126,10 +2529,13 @@ def main() -> int:
     g = phase_g(step)
     cli = g["uninterrupted"]
     recipe = phase_h()
+    # before I, which deletes phase G's checkpoint that J4 restores
+    serving = phase_j(cfg)
     ev = phase_i(cfg, g["benchmark"]["step_ms"])
     print(f"[smoke] all phases passed in {time.perf_counter() - t_start:.1f} s")
     for key in ("K1", "K4"):
         rows[key]["eval_shapes"] = ev[key]
+    rows["K1"]["oracle_shapes"] = serving["k1_oracle"]
 
     table = []
     for key, name, source, replaces in (
@@ -2148,13 +2554,16 @@ def main() -> int:
         table.append({
             "name": name, "route": "cuda", "source": source,
             "replaces": replaces,
-            # the counted runs of the five paths: 3 serve packs (phase C),
+            # the counted runs of the six paths: 3 serve packs (phase C),
             # 5 training steps (phase E), the trainer CLI's uninterrupted
             # 4-iteration run (phase G, counted in its own process), 5
-            # steps of the recipe as written (phase H1) and 4 feature
-            # batches of the eval path (phase I1)
+            # steps of the recipe as written (phase H1), 4 feature
+            # batches of the eval path (phase I1) and the serving plane's
+            # three measured arms (phase J1)
             "launches": (serve_launches[key] + train_launches[key] + cli["launches"][key]
-                         + recipe["launches"][key] + ev["launches"][key]),
+                         + recipe["launches"][key] + ev["launches"][key]
+                         + serving["launches"][key]),
+            "launches_serving_plane": serving["launches"][key],
             "launches_per_serve_pack": serve_launches[key] / packs,
             "launches_per_train_step": train_launches[key] / 5,
             "launches_per_cli_iteration": cli["launches"][key] / 4,
@@ -2164,7 +2573,7 @@ def main() -> int:
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
             "bound_by": r["bound_by"], "library_ms": r["library_ms"],
             **{k: r[k] for k in ("cold_ms", "visited_share", "walked_share", "train_shapes",
-                                 "eval_shapes") if k in r},
+                                 "eval_shapes", "oracle_shapes") if k in r},
         })
     print(f"[smoke] train step {step['ms']:.1f} ms, "
           f"{TRAIN_B / step['ms'] * 1e3:.2f} img/s, peak {step['peak_gib']:.2f} GiB; "

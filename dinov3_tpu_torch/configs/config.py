@@ -167,6 +167,7 @@ def load_config(
     apply_dot_overrides(cfg, overrides)
     cfg = apply_scaling_rules_to_cfg(cfg, n_devices)
     warn_accum_batch_tiling(cfg, n_devices)
+    warn_serve_cache_memory(cfg)
     return cfg
 
 
@@ -370,3 +371,129 @@ def warn_serve_pad_waste(
     )
     warnings.warn(msg, stacklevel=stacklevel + 1)
     return msg
+
+
+def serve_obs_wished(cfg: ConfigNode) -> bool:
+    """``telemetry.serve_spans``: auto/true (default) = the serving
+    observability plane (``telemetry/serve_obs.py``) behind the engines;
+    false = serving without it."""
+    t = (cfg.get("telemetry") or {}).get("serve_spans", "auto")
+    if isinstance(t, str):
+        return t.lower() in ("auto", "true", "on")
+    return bool(t)
+
+
+def serve_obs_kwargs(cfg: ConfigNode) -> dict:
+    """The ``telemetry.serve_*`` block as ``ServeObserver`` kwargs."""
+    t = cfg.get("telemetry") or {}
+    return {
+        "window_packs": int(t.get("serve_window_packs", 16) or 16),
+        "hist_lo_ms": float(t.get("serve_hist_lo_ms", 1e-2) or 1e-2),
+        "hist_hi_ms": float(t.get("serve_hist_hi_ms", 1e5) or 1e5),
+        "bins_per_decade": int(
+            t.get("serve_hist_bins_per_decade", 16) or 16),
+        "mix_alpha": float(t.get("serve_mix_alpha", 0.25) or 0.25),
+        "window_deadline_s": float(
+            t.get("serve_window_deadline_s", 0.0) or 0.0),
+    }
+
+
+def serve_quant_wished(cfg: ConfigNode) -> bool:
+    """``serve.quant.enabled``: opt-in int8 serving weights
+    (``serve/quant.py``); a fleet engine's own ``quant`` overrides it."""
+    q = (cfg.get("serve") or {}).get("quant") or {}
+    e = q.get("enabled", False)
+    if isinstance(e, str):
+        return e.lower() in ("true", "on", "1")
+    return bool(e)
+
+
+def serve_cache_wished(cfg: ConfigNode) -> bool:
+    """``serve.cache.enabled``: auto/true (default) = the fleet's
+    content-addressed feature cache (``serve/cache.py``); frozen weights
+    make a hit bitwise its miss."""
+    c = (cfg.get("serve") or {}).get("cache") or {}
+    e = c.get("enabled", "auto")
+    if isinstance(e, str):
+        return e.lower() in ("auto", "true", "on")
+    return bool(e)
+
+
+def serve_cache_entry_bytes(embed_dim: int, patch_tokens: int = 0) -> int:
+    """Feature bytes of one cache entry: the CLS and pooled [D] fp32
+    vectors, plus a [T, D] fp32 patch plane when per-token features are
+    served (``patch_tokens`` = T)."""
+    return (2 + int(patch_tokens)) * int(embed_dim) * 4
+
+
+def warn_quant_drift(
+    drift: float, tol: float = 0.05, stacklevel: int = 2,
+    axis: str = "int8 serving model",
+) -> str | None:
+    """Warn when the measured int8 CLS feature drift against the bf16
+    model exceeds ``serve.quant.drift_tol``. Returns the message or
+    None."""
+    if drift <= tol:
+        return None
+    msg = (
+        f"quant drift axis [{axis}]: measured int8 CLS feature drift "
+        f"{drift:.4g} exceeds serve.quant.drift_tol={tol:.4g} — the "
+        f"quantized engine's features have left the bf16 model's "
+        f"tolerance band. Serve this model in bf16 "
+        f"(serve.quant.enabled=false or the engine overlay's "
+        f"quant=false), or raise the tolerance only with a downstream "
+        f"quality check."
+    )
+    warnings.warn(msg, stacklevel=stacklevel + 1)
+    return msg
+
+
+def warn_cache_memory(
+    capacity: int, embed_dim: int, budget_mb: float = 1024.0,
+    threshold: float = 1.0, stacklevel: int = 2,
+    axis: str = "serve feature cache", patch_tokens: int = 0,
+) -> str | None:
+    """Warn when the cache's worst-case feature bytes (capacity x
+    ``serve_cache_entry_bytes``) exceed ``threshold`` x the host budget
+    (``serve.cache.host_budget_mb``). Returns the message or None."""
+    entry = serve_cache_entry_bytes(embed_dim, patch_tokens)
+    need_mb = int(capacity) * entry / 2**20
+    if budget_mb <= 0 or need_mb <= threshold * budget_mb:
+        return None
+    msg = (
+        f"cache memory axis [{axis}]: serve.cache.capacity={capacity} "
+        f"x {entry} B/entry (embed_dim {embed_dim}, patch_tokens "
+        f"{patch_tokens}) = {need_mb:.0f} MB of feature payload at full "
+        f"occupancy, over the serve.cache.host_budget_mb={budget_mb:.0f} "
+        f"budget. Lower the capacity or raise the budget "
+        f"(serve/cache.py)."
+    )
+    warnings.warn(msg, stacklevel=stacklevel + 1)
+    return msg
+
+
+def warn_serve_cache_memory(cfg: ConfigNode, stacklevel: int = 2) -> str | None:
+    """``warn_cache_memory`` at ``load_config``: the configured arch's
+    width (read off a parameterless ``meta``-device build) against the
+    cache's capacity and budget, when the cache is wished. Configs that
+    cannot build a backbone are skipped: this is a guardrail, not a
+    gate."""
+    if not serve_cache_wished(cfg):
+        return None
+    c = (cfg.get("serve") or {}).get("cache") or {}
+    budget_mb = float(c.get("host_budget_mb", 1024) or 1024)
+    if budget_mb <= 0:
+        return None
+    try:
+        import torch
+
+        from dinov3_tpu_torch.models import ARCHS, backbone_kwargs_from_cfg
+
+        with torch.device("meta"):
+            embed_dim = ARCHS[cfg.student.arch](
+                **backbone_kwargs_from_cfg(cfg)).embed_dim
+    except (KeyError, ValueError, NotImplementedError):
+        return None
+    return warn_cache_memory(
+        int(c.get("capacity", 4096) or 4096), embed_dim,
+        budget_mb=budget_mb, stacklevel=stacklevel + 1)

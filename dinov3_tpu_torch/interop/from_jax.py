@@ -218,3 +218,32 @@ def train_state_from_jax(flat: Mapping[str, Any]) -> dict:
     centers = {k: _to_torch(v, False) for k, v in tree["center_state"].items()}
     return {**out, **moments, "center_state": centers, "count": count,
             "step": int(np.asarray(tree["step"]))}
+
+
+def quant_state_from_jax(params: Mapping) -> dict[str, torch.Tensor]:
+    """A JAX int8 serving tree (``quantize_serving_tree``: ``QuantLeaf``
+    (q, scale) pairs at the matmul kernels, as numpy) -> the port's int8
+    ``state_dict`` (``serve/quant.py``): each quantized kernel's Meta name
+    ``<m>.weight`` becomes ``<m>.q`` (int8 codes [out, in], the JAX codes
+    transposed) and ``<m>.scale`` (fp32 [out, 1]); every other leaf maps
+    as ``state_dict_from_jax`` maps it."""
+
+    def is_quant(v) -> bool:
+        return hasattr(v, "q") and hasattr(v, "scale")
+
+    def pick(tree, field):
+        return {k: pick(v, field) if isinstance(v, Mapping)
+                else np.asarray(getattr(v, field)) if is_quant(v) else v
+                for k, v in tree.items()}
+
+    codes = state_dict_from_jax(pick(params, "q"))
+    scales = state_dict_from_jax(pick(params, "scale"))
+    out = {}
+    for name, t in codes.items():
+        if t.dtype == torch.int8:
+            base = name[: -len(".weight")]
+            out[f"{base}.q"] = t
+            out[f"{base}.scale"] = scales[name]
+        else:
+            out[name] = t
+    return out

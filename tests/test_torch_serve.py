@@ -16,6 +16,7 @@ Tolerances:
 """
 
 import dataclasses
+import os
 
 import flax.linen as nn
 import jax
@@ -203,13 +204,29 @@ def test_serving_cast_is_bitwise_the_jax_cast():
 
 def test_entry_points_raise_without_a_card_unless_cpu(monkeypatch):
     from dinov3_tpu_torch.models import build_backbone
-    from dinov3_tpu_torch.serve import build_serve_engine, load_serving_model
+    from dinov3_tpu_torch.serve import (
+        OracleServeEngine,
+        build_serve_engine,
+        build_serve_fleet,
+        load_serving_model,
+    )
+    from dinov3_tpu_torch.serve.bench import main as bench_main
 
     _, tcfg = _cfgs()
+    _, oracle_cfg = _cfgs(["serve.continuous_packing=false"])
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
-    for entry in (build_serve_engine, load_serving_model, build_backbone):
+    for entry, cfg in ((build_serve_engine, tcfg), (load_serving_model, tcfg),
+                       (build_backbone, tcfg), (build_serve_engine, oracle_cfg),
+                       (build_serve_fleet, tcfg)):
         with pytest.raises(RuntimeError, match="device='cpu'"):
-            entry(tcfg)
+            entry(cfg)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        bench_main(["--smoke", "--out", os.devnull])
+    oracle = build_serve_engine(oracle_cfg, device="cpu", warn=False)
+    assert isinstance(oracle, OracleServeEngine)
+    assert next(oracle.model.parameters()).device.type == "cpu"
+    fleet = build_serve_fleet(tcfg, device="cpu", warn=False)
+    assert len(_drain(fleet, _images()[:2])) == 2
     eng = build_serve_engine(tcfg, device="cpu", warn=False)
     assert next(eng.model.parameters()).device.type == "cpu"
     out = _drain(eng, _images()[:3])
