@@ -41,14 +41,15 @@ F. one training step of a 2-block ViT-L-width model (4096 prototypes,
    weights, batch and drop-path plan: loss terms, gradient norms and the
    updated student compared;
 G. the pretraining CLI (``python -m dinov3_tpu_torch.train.train``) at
-   ViT-L/16 full width and depth, B=32, synthetic data, each run a child
+   ViT-L/16 full width cut to 4 blocks (``CLI_DEPTH``: phases H7 and K1
+   run the CLI at full depth), B=32, synthetic data, each run a child
    process with a time limit: uninterrupted to 4 iterations; to 2; then,
    with a torn ``tmp.3/`` and an unfinalized ``3/`` planted, resumed in a
    new process to 4, its losses compared with the uninterrupted run's
    (``--ref-losses``) and its final teacher with that run's; before them a
    longer ``--benchmark`` run; ``--self-check``; and 2 steps of the image-folder
    pipeline on texture images. Each child's K1-K5 launches are checked
-   against ``STEP_LAUNCHES`` per step; the checkpoints are deleted after.
+   against ``CLI_STEP_LAUNCHES`` per step; the checkpoints are deleted after.
 
 H. the recipe as written (``configs/train/vitl16_im1k.yaml`` with only
    ``data.backend=synthetic``: B=64, streaming Sinkhorn targets, K-tile
@@ -87,8 +88,22 @@ J. the serving plane at ViT-L/16 (run before I, which deletes phase G's
    on phase G's checkpoint, ``serve.continuous_packing=false`` and the
    bench CLI's ``--smoke`` as a child process (J4); K1 at the oracle's
    dense shapes, N = 37, 193, 1025 (J5).
+K. the ViT-g/14 web-shard recipe (``configs/train/vitg14_webshards.yaml``:
+   40 blocks, 1536 wide, 24 heads of 64, patch 14, 4 registers, SwiGLU,
+   131,072 prototypes, ``blocks`` remat; one-card override
+   ``parallel.fsdp=1``): K1-K5 against their plain versions at its shapes
+   (K0: N = 261 with and without ids, N = 54, D = 1536); the trainer CLI at
+   full width and depth, B=16, from 320 seeded JPEGs in web shards it
+   writes, 6 iterations (4 timed: ms a step, img/s, peak memory, launches
+   pinned a step) and a resume from their save in a new process (K1);
+   the options this slice lifts as card-vs-CPU steps of a 2-block model
+   at ViT-g width: RoPE coordinate augmentation, the two-pass student
+   with ``rng.plan=false``, a crop-size list's second entry, and
+   ``--dump-weights`` through the CLI (K2); a SwiGLU ViT-g state_dict in
+   Meta's names (2 blocks) served from its file by the packed engine on
+   the card against the CPU (K3).
 
-Prints the kernel table as one JSON line, the card's name and power
+Prints each phase's seconds, the kernel table as one JSON line, the card's name and power
 limit, and as its last line ``{"ok": true, "device": {...}}``. Any
 failure raises and exits non-zero; without a card it exits non-zero
 before doing anything.
@@ -1283,36 +1298,39 @@ def phase_f() -> None:
     card_vs_cpu_step("F", ["loss.streaming_targets=false"])
 
 
-def card_vs_cpu_step(label: str, overrides: list) -> None:
-    """The phase-F pattern under ``overrides``: a 2-block ViT-L-width model
-    (4096 prototypes, B=4, LayerScale 1) takes one step on the card and
-    one on the CPU from the same weights, batch and drop-path plans (one a
-    microbatch under ``optim.accum_steps``); loss terms, gradient norms
-    and the updated student compared."""
+def card_vs_cpu_step(label: str, overrides: list, config: str | None = None,
+                     batch: dict | None = None) -> None:
+    """The phase-F pattern under ``config`` (the ViT-L/16 recipe when None)
+    and ``overrides``: a 2-block model at the config's width (4096 prototypes, B=4, LayerScale 1) takes
+    one step on the card and one on the CPU from the same weights, batch
+    (``batch``, else a synthetic one) and plans (drawn on the host by the
+    meta-arch, one a microbatch under ``optim.accum_steps``); loss terms,
+    gradient norms and the updated student compared."""
     import torch
 
     from dinov3_tpu_torch.configs import load_config
     from dinov3_tpu_torch.data import make_synthetic_batch
-    from dinov3_tpu_torch.rng import packed_pass_plan, step_generator
     from dinov3_tpu_torch.train import build_train_setup
-    from dinov3_tpu_torch.train.train_step import packed_layout, split_microbatches
+    from dinov3_tpu_torch.train.train_step import split_microbatches
 
     B = 4
     cfg = load_config(
-        os.path.join(REPO, "configs", "train", "vitl16_im1k.yaml"),
+        os.path.join(REPO, config or CLI_CONFIG),
         [f"train.batch_size_per_device={B}", "student.layerscale=1.0",
          "dino.head_n_prototypes=4096", "ibot.head_n_prototypes=4096", *overrides],
         n_devices=1)
-    batch = make_synthetic_batch(cfg, B, seed=1)
+    if batch is None:
+        batch = make_synthetic_batch(cfg, cfg.train.batch_size_per_device, seed=1)
     it = cfg.optim.warmup_epochs * cfg.train.OFFICIAL_EPOCH_LENGTH
     accum = int(cfg.optim.accum_steps)
-    plans = [packed_pass_plan(step_generator(0, it, None if accum == 1 else j), 2,
-                              packed_layout(cfg, mb).rows_total, cfg.student.drop_path_rate)
-             for j, mb in enumerate(split_microbatches(batch, accum))]
-    check(all(plans), f"[{label}] no drop-path plan")
+    plans = None
     results = {}
     for dev in ("cuda", "cpu"):
         setup = build_train_setup(cfg, batch, device=dev, seed=2, n_blocks=2)
+        if plans is None:  # drawn once on the host: both devices take these
+            plans = [setup.meta.draw_plan(0, it, mb, None if accum == 1 else j)
+                     for j, mb in enumerate(split_microbatches(batch, accum))]
+            check(all(plans), f"[{label}] no drop-path plan")
         state = setup.state
         state.step = state.opt_state.count = it
         before = {n: p.detach().cpu().clone()
@@ -1363,18 +1381,46 @@ def card_vs_cpu_step(label: str, overrides: list) -> None:
 G_DIR = os.path.join(REPO, "build", "phase_g")
 CLI_CONFIG = os.path.join("configs", "train", "vitl16_im1k.yaml")
 # the trainer's command of the ViT-L/16 slice: B=32, materialized targets,
-# synthetic data, a save every 2 iterations
-CLI_OVERRIDES = TRAIN_OVERRIDES + ["checkpointing.period=2"]
+# synthetic data, a save every 2 iterations, at ViT-L width cut to
+# CLI_DEPTH blocks: what phases G, I4, I5 and J4 check of these runs
+# (resume, torn saves, the self-check, the folder pipeline, the eval CLI
+# and evals in a run, serving from a checkpoint) does not depend on the
+# depth, and phases H7 and K1 run the CLI at full depth
+CLI_DEPTH = 4
+CLI_OVERRIDES = TRAIN_OVERRIDES + ["checkpointing.period=2",
+                                   f"+student.n_blocks={CLI_DEPTH}"]
+
+
+def step_launches(depth: int) -> dict:
+    """K1-K5 launches of one step of a ``depth``-block ViT: K1 once a
+    teacher and a student block; K4 twice a block in each backbone, plus
+    the teacher's final norm and the student's final and local-CLS norms;
+    K2, K3 and K5 once a student K1 or K4 launch."""
+    return {"K1": 2 * depth, "K2": depth, "K3": depth, "K4": 4 * depth + 3,
+            "K5": 2 * depth + 2}
+
+
+CLI_STEP_LAUNCHES = step_launches(CLI_DEPTH)
+
+
+def ckpt_cfg(cfg):
+    """``cfg`` at the depth of phase G's checkpoints."""
+    from dinov3_tpu_torch.configs import apply_dot_overrides
+
+    out = copy.deepcopy(cfg)
+    apply_dot_overrides(out, [f"+student.n_blocks={CLI_DEPTH}"])
+    return out
 
 
 def run_cli(name: str, args: list, overrides=(), timeout: int = 420,
-            base=CLI_OVERRIDES, label: str = "G", log_dir: str = G_DIR) -> dict:
+            base=CLI_OVERRIDES, label: str = "G", log_dir: str = G_DIR,
+            config: str = CLI_CONFIG) -> dict:
     """One run of ``python -m dinov3_tpu_torch.train.train`` as a child
-    process with a time limit (the ``base`` overrides, then
+    process with a time limit (``config``, the ``base`` overrides, then
     ``overrides``); its output goes to ``<log_dir>/<name>.log`` and its
     last line is its result. Raises on a non-zero exit."""
     cmd = [sys.executable, "-m", "dinov3_tpu_torch.train.train",
-           "--config-file", CLI_CONFIG, *args, *base, *overrides]
+           "--config-file", config, *args, *base, *overrides]
     t0 = time.perf_counter()
     proc = subprocess.run(cmd, cwd=REPO, capture_output=True, text=True,
                           timeout=timeout)
@@ -1401,7 +1447,7 @@ def run_cli(name: str, args: list, overrides=(), timeout: int = 420,
 
 
 def check_launches(name: str, result: dict, steps: int) -> None:
-    want = {k: v * steps for k, v in STEP_LAUNCHES.items()}
+    want = {k: v * steps for k, v in CLI_STEP_LAUNCHES.items()}
     check(result["launches"] == want,
           f"[G] {name}: launches {result['launches']} != {want} ({steps} steps)")
 
@@ -1512,7 +1558,8 @@ def _phase_g(step: dict, cfg) -> dict:
 
     sc = run_cli("self-check", ["--output-dir", os.path.join(G_DIR, "s"), "--self-check"])
     failed = [k for k, v in sc.items() if k.startswith("check/") and not v]
-    print(f"[G] self-check at full width: {sum(k.startswith('check/') for k in sc)} "
+    print(f"[G] self-check at full width, {CLI_DEPTH} blocks: "
+          f"{sum(k.startswith('check/') for k in sc)} "
           f"checks, failures {failed}")
     check(sc["self_check_failures"] == 0 and not failed, f"[G] self-check failed: {failed}")
     check_launches("self-check", sc, 2)
@@ -1532,11 +1579,9 @@ def _phase_g(step: dict, cfg) -> dict:
     check_launches("folder", folder, 2)
     check(np.isfinite(folder["final_loss"]), f"[G] folder run loss {folder['final_loss']}")
 
-    print(f"[G] CLI --benchmark: {a['img_per_sec']:.2f} img/s ({a['ms_per_step']:.1f} ms a "
-          f"step over 2 steps), {bench['img_per_sec']:.2f} img/s ({bench['ms_per_step']:.1f} "
-          f"ms over 8 steps); phase E step_fn: {TRAIN_B / step['median_ms'] * 1e3:.2f} img/s "
-          f"at its median {step['median_ms']:.1f} ms; CLI / phase E "
-          f"{bench['ms_per_step'] / step['median_ms']:.4f}")
+    print(f"[G] CLI --benchmark at {CLI_DEPTH} blocks: {a['img_per_sec']:.2f} img/s "
+          f"({a['ms_per_step']:.1f} ms a step over 2 steps), {bench['img_per_sec']:.2f} "
+          f"img/s ({bench['ms_per_step']:.1f} ms over 8 steps)")
     return {"uninterrupted": a, "benchmark": bench, "resumed": r2}
 
 
@@ -1775,6 +1820,8 @@ EVAL_PX = 224
 # launches of one feature batch of the ViT-L/16 forward: K1 once a block,
 # K4 twice a block and the final norm
 EVAL_LAUNCHES = {"K1": 24, "K2": 0, "K3": 0, "K4": 49, "K5": 0}
+# and of the CLI_DEPTH-block model of phase G's checkpoint (phase I5)
+CLI_EVAL_LAUNCHES = {"K1": CLI_DEPTH, "K2": 0, "K3": 0, "K4": 2 * CLI_DEPTH + 1, "K5": 0}
 # ImageNet-1k's split lengths (dinov3_tpu/data/datasets/image_net.py) and
 # classes, at the ViT-L/16 width
 IN1K_TRAIN, IN1K_VAL, IN1K_CLASSES, EVAL_DIM = 1_281_167, 50_000, 1000, 1024
@@ -2067,7 +2114,7 @@ def phase_i4(cfg) -> None:
            "evaluation.train_dataset_path=Synthetic:split=TRAIN:size=2048:image_size=256:"
            "n_classes=10",
            "evaluation.val_dataset_path=Synthetic:split=VAL:size=512:image_size=256:"
-           "n_classes=10", "train.num_workers=8"]
+           "n_classes=10", "train.num_workers=8", f"+student.n_blocks={CLI_DEPTH}"]
     t0 = time.perf_counter()
     proc = subprocess.run(cmd, cwd=REPO, capture_output=True, text=True, timeout=300)
     wall = time.perf_counter() - t0
@@ -2084,7 +2131,7 @@ def phase_i4(cfg) -> None:
           f"[I4] results {results}")
     with open(os.path.join(I_DIR, "eval.json")) as f:
         check(json.load(f) == results, "[I4] --output differs from the printed line")
-    model = build_model_for_eval(cfg, I_CKPT, device="cuda")
+    model = build_model_for_eval(ckpt_cfg(cfg), I_CKPT, device="cuda")
     want = teacher_of(I_DIR, 4)
     got = model.state_dict()
     bad = [k for k, v in got.items() if not torch.equal(v.cpu(), want[f"backbone.{k}"])]
@@ -2096,8 +2143,9 @@ def phase_i4(cfg) -> None:
 
 
 def phase_i5(g_step_ms: list) -> None:
-    """Evals inside a trainer CLI run at ViT-L/16, B=32: 3 iterations, an
-    eval after the second (inside a --benchmark interval), one save."""
+    """Evals inside a trainer CLI run at ViT-L/16 width and phase G's depth,
+    B=32: 3 iterations, an eval after the second (inside a --benchmark
+    interval), one save."""
     result = run_cli("in-run eval", ["--output-dir", os.path.join(I_DIR, "run"),
                                      "--max-iterations", "3", "--benchmark", "2"],
                      ["checkpointing.period=100", "evaluation.eval_period_iterations=2",
@@ -2108,7 +2156,8 @@ def phase_i5(g_step_ms: list) -> None:
           f"--benchmark steps " + ", ".join(f"{t:.1f}" for t in result["step_ms"]) + " ms")
     check([r["iteration"] for r in records] == [2] and len(result["evals"]) == 1,
           f"[I5] eval records {records}")
-    want = {k: 3 * v + I5_FEATURE_BATCHES * EVAL_LAUNCHES[k] for k, v in STEP_LAUNCHES.items()}
+    want = {k: 3 * v + I5_FEATURE_BATCHES * CLI_EVAL_LAUNCHES[k]
+            for k, v in CLI_STEP_LAUNCHES.items()}
     check(result["launches"] == want, f"[I5] launches {result['launches']} != {want}")
     check(np.isfinite(result["final_loss"]), f"[I5] loss {result['final_loss']}")
     lo, hi = min(g_step_ms), max(g_step_ms)
@@ -2436,6 +2485,7 @@ def phase_j4(cfg) -> None:
     )
 
     check(os.path.isdir(I_CKPT), f"[J4] phase G's checkpoint is not under {I_CKPT}")
+    cfg = ckpt_cfg(cfg)
     images = make_mix(np.random.default_rng(9), MIXED_RAGGED, 32, 16)
     t0 = time.perf_counter()
     eng = build_serve_engine(cfg, ckpt_dir=I_CKPT, device="cuda", warn=False)
@@ -2502,6 +2552,332 @@ def phase_j5() -> dict:
     return rows
 
 
+# ---------------------------------------------------------------- phase K
+
+K_DIR = os.path.join(REPO, "build", "phase_k")
+VITG_CONFIG = os.path.join("configs", "train", "vitg14_webshards.yaml")
+# the recipe's images a step on one card (train.batch_size_per_device)
+VITG_B = 16
+# ViT-g/14 (configs/train/vitg14_webshards.yaml): 40 blocks, 1536 wide, 24
+# heads of 64, patch 14, 4 registers; 224 px globals (1 + 4 + 256 = 261
+# tokens) and 98 px locals (1 + 4 + 49 = 54 tokens), packed 4 to a row
+VITG_N, VITG_N_LOCAL, VITG_H, VITG_D = 261, 54, 24, 1536
+# launches of one step of the recipe under its `blocks` remat: K1 40
+# teacher + 40 student + 40 recomputed; K4 81 teacher (2 a block and the
+# final norm), 82 student (and the local-CLS norm), 80 recomputed; K5 once
+# a student K4 launch; K2, K3 once a student block
+VITG_LAUNCHES = {"K1": 120, "K2": 40, "K3": 40, "K4": 243, "K5": 82}
+# the one-card overrides of the recipe: no FSDP mesh (the port trains on
+# one card; parallel.fsdp > 1 is refused, ROADMAP M7)
+VITG_OVERRIDES = ["parallel.fsdp=1"]
+# the 2-block checks at ViT-g width (K2, as phase F): 4 images, 4096
+# prototypes, LayerScale 1
+VITG_SMALL = ["train.batch_size_per_device=4", "student.layerscale=1.0",
+              "dino.head_n_prototypes=4096", "ibot.head_n_prototypes=4096"]
+# the ViT-7B recipes' rescale, with a shift and a jitter on top
+ROPE_AUG = ["student.pos_embed_rope_shift_coords=0.05",
+            "student.pos_embed_rope_jitter_coords=1.1",
+            "student.pos_embed_rope_rescale_coords=2"]
+
+
+def vitg_attention_seg(batch_size: int = VITG_B, rate: float = 0.4):
+    """The seg plane one ViT-g student block's attention sees: the packed
+    layout's ids (2B global rows of 261 tokens, 4 local crops of 54 a
+    packed row) at the kept rows of a drop-path subset of the port's plan."""
+    from dinov3_tpu_torch.ops.packing import make_packed_layout, packed_segment_ids
+    from dinov3_tpu_torch.rng import packed_pass_plan, step_generator
+
+    layout = make_packed_layout(n_global_rows=2 * batch_size, n_local=8 * batch_size,
+                                seq_global=VITG_N, seq_local=VITG_N_LOCAL, n_prefix=5)
+    plan = packed_pass_plan(step_generator(0, 0), 40, layout.rows_total, rate)
+    return packed_segment_ids(layout)[plan["drop_path"]["idx"][0, 0].numpy()], layout
+
+
+def phase_k() -> dict:
+    """The ViT-g/14 web-shard recipe on one card (module docstring)."""
+    import torch
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    shutil.rmtree(K_DIR, ignore_errors=True)
+    os.makedirs(K_DIR)
+    try:
+        t0 = time.perf_counter()
+        rows = phase_k0()
+        print(f"[K] K0 {time.perf_counter() - t0:.1f} s")
+        t0 = time.perf_counter()
+        cli = phase_k1()
+        print(f"[K] K1 {time.perf_counter() - t0:.1f} s")
+        t0 = time.perf_counter()
+        phase_k2()
+        print(f"[K] K2 {time.perf_counter() - t0:.1f} s")
+        t0 = time.perf_counter()
+        phase_k3()
+        print(f"[K] K3 {time.perf_counter() - t0:.1f} s")
+        return {"rows": rows, "cli": cli}
+    finally:
+        shutil.rmtree(K_DIR, ignore_errors=True)
+
+
+def phase_k0() -> dict:
+    """K1-K5 against their plain versions at the recipe's shapes: the
+    teacher's [2B x 24, 261, 64] with no ids, one student block's packed
+    rows with ids (K1, K2, K3), the two-pass student's locals [n_l B x 24,
+    54, 64], and the LayerNorms at D = 1536 (K4 a block's rows and the
+    teacher's, K5 a block's and all packed rows)."""
+    import torch
+
+    dev = torch.device("cuda")
+    g = torch.Generator().manual_seed(11)
+    bf16 = torch.bfloat16
+    H, D = VITG_H, 64
+
+    def randn(*shape, dtype=bf16):
+        return torch.randn(*shape, generator=g).to(dev, dtype)
+
+    def qkv_views(rows, n):
+        qkv = randn(rows, n, 3 * H * D)
+        q, k, v = (qkv[..., i * H * D:(i + 1) * H * D].reshape(rows, n, H, D)
+                   for i in range(3))
+        return q.contiguous(), k.contiguous(), v
+
+    seg_np, layout = vitg_attention_seg()
+    seg = torch.from_numpy(seg_np).to(dev)
+    out = {k: {} for k in ("K1", "K2", "K3", "K4", "K5")}
+    R = seg.shape[0]
+    q, k, v = qkv_views(R, VITG_N)
+    out["K1"]["student"] = check_flash(q, k, v, seg, f"ViT-g student block [{R}x{H}, "
+                                       f"{VITG_N}, {D}] bf16 seg", time_it=True)
+    bwd = check_flash_bwd(q, k, v, seg, f"ViT-g student block [{R}x{H}, {VITG_N}, {D}] "
+                          "bf16 seg", time_it=True)
+    out["K2"]["student"], out["K3"]["student"] = bwd["K2"], bwd["K3"]
+    del q, k, v
+    q, k, v = qkv_views(2 * VITG_B, VITG_N)
+    out["K1"]["teacher"] = check_flash(q, k, v, None, f"ViT-g teacher [{2 * VITG_B}x{H}, "
+                                       f"{VITG_N}, {D}] bf16 no seg", time_it=True)
+    del q, k, v
+    n_loc = 8 * VITG_B
+    q, k, v = qkv_views(n_loc, VITG_N_LOCAL)
+    out["K1"]["two-pass locals"] = check_flash(
+        q, k, v, None, f"ViT-g two-pass locals [{n_loc}x{H}, {VITG_N_LOCAL}, {D}] bf16",
+        time_it=True)
+    bwd = check_flash_bwd(q, k, v, None, f"ViT-g two-pass locals [{n_loc}x{H}, "
+                          f"{VITG_N_LOCAL}, {D}] bf16", time_it=True)
+    out["K2"]["two-pass locals"], out["K3"]["two-pass locals"] = bwd["K2"], bwd["K3"]
+    del q, k, v
+    from dinov3_tpu_torch.ops.fused_norm import layernorm_vec_path
+
+    vec = layernorm_vec_path(VITG_D, bf16, (0, 0, 0, 0))
+    print(f"[K] K4/K5 at D = {VITG_D} in bf16: vector path with {vec} vectors a lane")
+    check(vec == 8, f"[K] D = {VITG_D}: vector path {vec}, not 8 vectors a lane")
+    s, b = (torch.randn(VITG_D, generator=g) * 0.5 + 1).to(dev), torch.randn(
+        VITG_D, generator=g).to(dev)
+    out["K4"]["student block"] = check_layernorm(
+        randn(R * VITG_N, VITG_D) * 3 + 1, s, b,
+        f"ViT-g student block [{R * VITG_N}, {VITG_D}] bf16, fp32 params", time_it=True)
+    out["K4"]["teacher"] = check_layernorm(
+        randn(2 * VITG_B * VITG_N, VITG_D) * 3 + 1, s, b,
+        f"ViT-g teacher [{2 * VITG_B * VITG_N}, {VITG_D}] bf16, fp32 params", time_it=True)
+    out["K5"]["student block"] = check_layernorm_bwd(
+        randn(R * VITG_N, VITG_D) * 3 + 1, s,
+        f"ViT-g student block [{R * VITG_N}, {VITG_D}] bf16, fp32 scale", time_it=True)
+    p_rows = layout.rows_total * VITG_N
+    out["K5"]["packed rows"] = check_layernorm_bwd(
+        randn(p_rows, VITG_D) * 3 + 1, s,
+        f"ViT-g packed rows [{p_rows}, {VITG_D}] bf16, fp32 scale", time_it=True)
+    check_layernorm(randn(77, VITG_D, dtype=torch.float32), s, b,
+                    f"[77, {VITG_D}] fp32")
+    check_layernorm_bwd(randn(77, VITG_D, dtype=torch.float32), s,
+                        f"[77, {VITG_D}] fp32")
+    return out
+
+
+def write_web_shards(root: str, n_images: int = 320, per_shard: int = 64,
+                     px: int = 256, n_classes: int = 10, seed: int = 0) -> int:
+    """``shard-%06d.tar`` files of ``<key>.jpg`` / ``<key>.cls`` pairs: seeded
+    smooth images (random 8 x 8 colour fields upsampled bicubically, with
+    pixel noise), labels cycling over ``n_classes``. Returns the bytes."""
+    import io
+    import tarfile
+
+    from PIL import Image
+
+    rng = np.random.default_rng(seed)
+    os.makedirs(root, exist_ok=True)
+    nbytes = 0
+    for shard in range(-(-n_images // per_shard)):
+        with tarfile.open(os.path.join(root, f"shard-{shard:06d}.tar"), "w") as tf:
+            for i in range(shard * per_shard, min(n_images, (shard + 1) * per_shard)):
+                label = i % n_classes
+                field = Image.fromarray(rng.integers(0, 256, (8, 8, 3), dtype=np.uint8))
+                img = np.asarray(field.resize((px, px), Image.BICUBIC), np.float32)
+                img = np.clip(img + rng.normal(0, 8, img.shape), 0, 255).astype(np.uint8)
+                buf = io.BytesIO()
+                Image.fromarray(img).save(buf, format="JPEG", quality=90)
+                for name, payload in ((f"{i:08d}.jpg", buf.getvalue()),
+                                      (f"{i:08d}.cls", str(label).encode())):
+                    info = tarfile.TarInfo(name)
+                    info.size = len(payload)
+                    tf.addfile(info, io.BytesIO(payload))
+                    nbytes += len(payload)
+    return nbytes
+
+
+def phase_k1() -> dict:
+    """The ViT-g/14 recipe through the trainer CLI at full width and depth
+    from web shards written here: 6 iterations at B=16 (the last 4 timed,
+    one save at the end), then a new process resuming from that save for a
+    7th; launches pinned a step, losses finite."""
+    t0 = time.perf_counter()
+    shards = os.path.join(K_DIR, "shards")
+    nbytes = write_web_shards(shards)
+    print(f"[K] K1: 320 JPEGs of 256 px in 5 web shards ({nbytes} bytes) written "
+          f"in {time.perf_counter() - t0:.1f} s; disk free "
+          f"{shutil.disk_usage(K_DIR).free / 2 ** 30:.1f} GiB")
+    base = VITG_OVERRIDES + [f"data.root={shards}", "checkpointing.period=6"]
+    run = os.path.join(K_DIR, "run")
+    losses = os.path.join(K_DIR, "a.jsonl")
+    a = run_cli("vitg14 recipe", ["--output-dir", run, "--max-iterations", "6",
+                                     "--benchmark", "4", "--record-losses", losses],
+                base=base, label="K", log_dir=K_DIR, config=VITG_CONFIG, timeout=600)
+    check(a["launches"] == {k: v * 6 for k, v in VITG_LAUNCHES.items()},
+          f"[K] launches {a['launches']} != 6 x {VITG_LAUNCHES}")
+    check((a["remat"], a["targets"], a["crop_packing"]) == ("blocks", "streaming", True),
+          f"[K] resolved {a['remat']}, {a['targets']}, packing {a['crop_packing']}")
+    check([s["step"] for s in a["saves"]] == [6], f"[K] saves {a['saves']}")
+    rec = read_losses(losses)
+    check(sorted(rec) == list(range(6)) and all(
+        np.isfinite(v) for r in rec.values() for v in r.values()), f"[K] losses {rec}")
+    b = run_cli("vitg14 recipe resumed", ["--output-dir", run, "--max-iterations", "7"],
+                base=base, label="K", log_dir=K_DIR, config=VITG_CONFIG, timeout=600)
+    check(b["start_iteration"] == 6 and b["iterations"] == 7
+          and np.isfinite(b["final_loss"]), f"[K] resume {b}")
+    check(b["launches"] == VITG_LAUNCHES, f"[K] resumed launches {b['launches']}")
+    print(f"[K] K1 ViT-g/14 at B={VITG_B}: {a['ms_per_step']:.1f} ms a step, "
+          f"{a['img_per_sec']:.2f} img/s, peak {a['peak_memory_gib']:.2f} GiB; save "
+          f"{a['saves'][0]['bytes']} bytes in {a['saves'][0]['seconds']:.1f} s, restore "
+          f"{b['restore_s']:.1f} s; losses at iteration 5: "
+          + ", ".join(f"{k} {rec[5][k]:.4f}" for k in LOSS_KEYS))
+    shutil.rmtree(run)
+    return {**a, "resumed": b}
+
+
+def phase_k2() -> None:
+    """The options this slice lifts, each in a card step against the CPU
+    on a 2-block model at ViT-g width with 2 images (the phase-F pattern):
+    RoPE coordinate augmentation; the two-pass student with
+    ``rng.plan=false`` and RoPE augmentation; the second entry of a
+    two-entry crop-size list (a 252 px batch of its combined stream; the
+    first entry, 224 px, is the other arms' shape). Then ``--dump-weights``
+    through the CLI on the card, the dump held against the run's own
+    checkpoint."""
+    import torch
+
+    from dinov3_tpu_torch.configs import load_config
+    from dinov3_tpu_torch.train.train import build_data_iterator
+
+    vitg = VITG_OVERRIDES + ["data.backend=synthetic", "train.batch_size_per_device=2"]
+    card_vs_cpu_step("K2 rope", vitg + ROPE_AUG, config=VITG_CONFIG)
+    card_vs_cpu_step("K2 two-pass, rng.plan=false", vitg + ROPE_AUG + [
+        "model.crop_packing=false", "rng.plan=false"], config=VITG_CONFIG)
+    lists = ["crops.global_crops_size=[224,252]", "crops.local_crops_size=[98,112]"]
+    cfg = load_config(os.path.join(REPO, VITG_CONFIG), vitg + VITG_SMALL + lists
+                      + ["train.batch_size_per_device=2"], n_devices=1)
+    stream = build_data_iterator(cfg, 2)
+    try:
+        batches = [next(stream) for _ in range(3)]
+    finally:
+        stream.close()
+    sizes = [b["global_crops"].shape[1] for b in batches]
+    check(set(sizes) == {224, 252}, f"[K] crop-size list gave sizes {sizes}")
+    card_vs_cpu_step("K2 list, 252 px", vitg + lists, config=VITG_CONFIG,
+                     batch=next(b for b in batches if b["global_crops"].shape[1] == 252))
+    d = os.path.join(K_DIR, "dump")
+    r = run_cli("--dump-weights", ["--output-dir", d, "--max-iterations", "1",
+                                   "--dump-weights", os.path.join(d, "w.npz")],
+                base=VITG_OVERRIDES + VITG_SMALL + [
+                    "data.backend=synthetic", "+student.n_blocks=2", "checkpointing.period=1"],
+                label="K", log_dir=K_DIR, config=VITG_CONFIG, timeout=300)
+    dumped = np.load(os.path.join(d, "w.npz"))
+    saved = torch.load(os.path.join(d, "ckpt", "1", "state.pt"), map_location="cpu",
+                       weights_only=True)
+    want = {f"{role}/{n}".replace(".", "/"): t for role in ("student", "teacher")
+            for n, t in saved[role].items()}
+    check(set(dumped.files) == set(want) and r["dump_weights"]["arrays"] == len(want),
+          "[K] dumped names")
+    check(all(np.array_equal(dumped[k], want[k].float().numpy()) for k in want),
+          "[K] the dump differs from the run's checkpoint")
+    print(f"[K] K2 --dump-weights: {len(want)} arrays, {r['dump_weights']['bytes']} "
+          f"bytes, equal to the step-1 checkpoint bit for bit")
+
+
+def meta_state_dict(port_sd: dict) -> dict:
+    """A port backbone ``state_dict`` in the names of Meta's release:
+    SwiGLU's fused ``w12`` split into ``w1`` (gate) and ``w2`` (value), the
+    RoPE periods and the qkv bias masks added."""
+    import torch
+
+    out = {"rope_embed.periods": torch.zeros(16)}
+    for k, v in port_sd.items():
+        if ".mlp.w12." in k:
+            out[k.replace(".w12.", ".w1.")], out[k.replace(".w12.", ".w2.")] = (
+                t.clone() for t in v.chunk(2, dim=0))
+        else:
+            out[k] = v
+        if k.endswith("attn.qkv.bias"):
+            mask = torch.ones_like(v)
+            mask[v.shape[0] // 3: 2 * v.shape[0] // 3] = 0
+            out[k + "_mask"] = mask
+    return out
+
+
+def phase_k3() -> None:
+    """A SwiGLU ViT-g state_dict in Meta's names (2 blocks at full width,
+    seeded, LayerScale 1) written to a file and served from it by the
+    packed engine on the card, against the same engine on the CPU (the
+    kernels' plain versions) from the same file."""
+    import torch
+
+    from dinov3_tpu_torch.configs import load_config
+    from dinov3_tpu_torch.models import build_backbone
+    from dinov3_tpu_torch.serve import build_serve_engine, serve_layout_from_cfg
+
+    cfg = load_config(os.path.join(REPO, VITG_CONFIG),
+                      VITG_OVERRIDES + ["+student.n_blocks=2", "student.layerscale=1.0"],
+                      n_devices=1)
+    src = build_backbone(cfg, device="cpu", seed=7)
+    path = os.path.join(K_DIR, "dinov3_vitg14_2blocks.pth")
+    torch.save(meta_state_dict(src.state_dict()), path)
+    layout = serve_layout_from_cfg(cfg)
+    # the mixed_ragged bands on the 14 px patch grid
+    bands = [(p, (-(-lo // 14) * 14, hi // 14 * 14)) for p, (lo, hi) in MIXED_RAGGED]
+    images = make_mix(np.random.default_rng(3), bands, 24, layout.patch_size)
+    results = {}
+    for dev in ("cuda", "cpu"):
+        eng = build_serve_engine(cfg, meta_weights=path, device=dev, warn=False)
+        for i, im in enumerate(images):
+            eng.submit(im, request_id=i)
+        reset_counts()
+        t0 = time.perf_counter()
+        results[dev] = {r.request_id: r for r in eng.flush()}
+        counts = read_counts()
+        print(f"[K] K3 one pack on {dev}: {len(results[dev])} requests, "
+              f"{(time.perf_counter() - t0) * 1e3:.1f} ms, launches {counts}")
+        if dev == "cuda":
+            check(counts["K1"] == 2 and counts["K4"] == 6,
+                  f"[K] K3 launches {counts}, not K1 2 and K4 6 a pack")
+    check(results["cuda"].keys() == results["cpu"].keys() and results["cpu"],
+          "[K] K3 card and CPU served other requests")
+    scale = max(float(np.abs(r.cls_feature).max()) for r in results["cpu"].values())
+    tol = 2.0 ** -4 * max(scale, 1.0)  # as phase D: bf16 on both, other sum orders
+    worst = max(float(np.abs(getattr(results["cuda"][i], n) - getattr(c, n)).max())
+                for i, c in results["cpu"].items()
+                for n in ("cls_feature", "pooled_patch_feature"))
+    print(f"[K] K3 Meta-layout ViT-g weights served: card vs CPU worst feature error "
+          f"{worst:.3e} (tol {tol:.3e})")
+    check(worst <= tol, f"[K] K3 card vs CPU features {worst:.3e} > {tol:.3e}")
+
+
 # ---------------------------------------------------------------- main
 
 def main() -> int:
@@ -2519,23 +2895,36 @@ def main() -> int:
     KERNELS.update(_kernels())
     cfg = load_config(os.path.join(REPO, "configs", "train", "vitl16_im1k.yaml"))
     t_start = time.perf_counter()
-    phase_a()
-    rows = phase_b(cfg)
-    serve_launches, packs = phase_c(cfg)
-    phase_d(cfg)
-    rows.update(phase_b_bwd())
-    train_launches, step = phase_e()
-    phase_f()
-    g = phase_g(step)
+    seconds = {}
+
+    def timed(name, fn, *args):
+        t0 = time.perf_counter()
+        out = fn(*args)
+        seconds[name] = time.perf_counter() - t0
+        print(f"[smoke] phase {name}: {seconds[name]:.1f} s")
+        return out
+
+    timed("A", phase_a)
+    rows = timed("B", phase_b, cfg)
+    serve_launches, packs = timed("C", phase_c, cfg)
+    timed("D", phase_d, cfg)
+    rows.update(timed("B'", phase_b_bwd))
+    train_launches, step = timed("E", phase_e)
+    timed("F", phase_f)
+    g = timed("G", phase_g, step)
     cli = g["uninterrupted"]
-    recipe = phase_h()
+    recipe = timed("H", phase_h)
     # before I, which deletes phase G's checkpoint that J4 restores
-    serving = phase_j(cfg)
-    ev = phase_i(cfg, g["benchmark"]["step_ms"])
-    print(f"[smoke] all phases passed in {time.perf_counter() - t_start:.1f} s")
+    serving = timed("J", phase_j, cfg)
+    ev = timed("I", phase_i, cfg, g["benchmark"]["step_ms"])
+    vitg = timed("K", phase_k)
+    print(f"[smoke] all phases passed in {time.perf_counter() - t_start:.1f} s: "
+          + ", ".join(f"{k} {v:.1f}" for k, v in seconds.items()))
     for key in ("K1", "K4"):
         rows[key]["eval_shapes"] = ev[key]
     rows["K1"]["oracle_shapes"] = serving["k1_oracle"]
+    for key in KERNELS:
+        rows[key]["vitg_shapes"] = vitg["rows"][key]
 
     table = []
     for key, name, source, replaces in (
@@ -2554,26 +2943,29 @@ def main() -> int:
         table.append({
             "name": name, "route": "cuda", "source": source,
             "replaces": replaces,
-            # the counted runs of the six paths: 3 serve packs (phase C),
+            # the counted runs of the seven paths: 3 serve packs (phase C),
             # 5 training steps (phase E), the trainer CLI's uninterrupted
-            # 4-iteration run (phase G, counted in its own process), 5
+            # 4-iteration run (phase G at CLI_DEPTH blocks, counted in its
+            # own process), 5
             # steps of the recipe as written (phase H1), 4 feature
-            # batches of the eval path (phase I1) and the serving plane's
-            # three measured arms (phase J1)
+            # batches of the eval path (phase I1), the serving plane's
+            # three measured arms (phase J1) and the ViT-g/14 recipe's 6
+            # CLI iterations (phase K1, in its own process)
             "launches": (serve_launches[key] + train_launches[key] + cli["launches"][key]
                          + recipe["launches"][key] + ev["launches"][key]
-                         + serving["launches"][key]),
+                         + serving["launches"][key] + vitg["cli"]["launches"][key]),
             "launches_serving_plane": serving["launches"][key],
             "launches_per_serve_pack": serve_launches[key] / packs,
             "launches_per_train_step": train_launches[key] / 5,
             "launches_per_cli_iteration": cli["launches"][key] / 4,
             "launches_per_recipe_step": recipe["per_step"][key],
             "launches_per_eval_batch": ev["launches"][key] / ev["batches"],
+            "launches_per_vitg_step": vitg["cli"]["launches"][key] / 6,
             "max_abs_err": r["max_abs_err"], "ms": r["ms"],
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
             "bound_by": r["bound_by"], "library_ms": r["library_ms"],
             **{k: r[k] for k in ("cold_ms", "visited_share", "walked_share", "train_shapes",
-                                 "eval_shapes", "oracle_shapes") if k in r},
+                                 "eval_shapes", "oracle_shapes", "vitg_shapes") if k in r},
         })
     print(f"[smoke] train step {step['ms']:.1f} ms, "
           f"{TRAIN_B / step['ms'] * 1e3:.2f} img/s, peak {step['peak_gib']:.2f} GiB; "
@@ -2581,7 +2973,9 @@ def main() -> int:
           f"{recipe['B'] / recipe['median_ms'] * 1e3:.2f} img/s, peak {recipe['peak_gib']:.2f} GiB; "
           f"eval extraction {ev['img_s']:.1f} img/s at B={EVAL_B}, peak {ev['peak_gib']:.2f} GiB; "
           f"k-NN at ImageNet-1k size {ev['i3']['knn_s']:.2f} s, a sweep epoch "
-          f"{ev['i3']['sweep_epoch_s']:.2f} s")
+          f"{ev['i3']['sweep_epoch_s']:.2f} s; the ViT-g/14 recipe (B={VITG_B}) "
+          f"{vitg['cli']['ms_per_step']:.1f} ms a step, {vitg['cli']['img_per_sec']:.2f} img/s, "
+          f"peak {vitg['cli']['peak_memory_gib']:.2f} GiB")
     print(json.dumps({"kernels": table}))
     print(smi_line())
     print(json.dumps({"ok": True, "device": {

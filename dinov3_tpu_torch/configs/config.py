@@ -227,6 +227,18 @@ def streaming_targets_wished(cfg: ConfigNode) -> bool:
     return bool(st)
 
 
+def crop_packing_wished(cfg: ConfigNode) -> bool:
+    """``model.crop_packing``: auto/true (default) = the crop-packed
+    student pass; false = the two-pass student."""
+    return _wished((cfg.get("model") or {}).get("crop_packing", "auto"), True)
+
+
+def rng_plan_wished(cfg: ConfigNode) -> bool:
+    """``rng.plan``: auto/true (default) = the step plan; false = the
+    per-pass, per-block generators (``rng/plan.py fold_in_plan``)."""
+    return _wished((cfg.get("rng") or {}).get("plan", "auto"), True)
+
+
 def warn_accum_batch_tiling(cfg: ConfigNode, n_devices: int = 1,
                             stacklevel: int = 2) -> list[str]:
     """Warn while the config is still editable when ``optim.accum_steps``
@@ -254,7 +266,9 @@ def check_train_slice(cfg: ConfigNode) -> None:
     """Refuse what the training slice does not implement, naming the
     ROADMAP item where it waits; nothing falls back quietly. Also the
     JAX meta-arch's own checks (local crops, iBOT head, mask ratios,
-    centering, accumulation steps)."""
+    centering, accumulation steps, the packing and plan flags). ``train.scan_layers``
+    is an XLA compile option with no effect on the numbers: the port's
+    block stack is unrolled whatever it says (the trainer logs it)."""
     if cfg.crops.local_crops_number <= 0:
         raise ValueError("DINOv3 needs local crops (crops.local_crops_number > 0)")
     if not cfg.ibot.separate_head:
@@ -269,18 +283,17 @@ def check_train_slice(cfg: ConfigNode) -> None:
     if int((cfg.get("optim") or {}).get("accum_steps", 1) or 1) < 1:
         raise ValueError(f"optim.accum_steps must be >= 1, got {cfg.optim.accum_steps}")
     streaming_targets_wished(cfg)  # raises on a bad value
+    crop_packing_wished(cfg), rng_plan_wished(cfg)  # raise on bad values
     s = cfg.student
+    par = cfg.get("parallel") or {}
+    sharded = {axis: int(par.get(axis, 1) or 1) for axis in
+               ("fsdp", "tensor", "seq", "pipe", "expert", "dcn_data")}
     waits = [
-        (not _wished((cfg.get("model") or {}).get("crop_packing", "auto"), True),
-         "model.crop_packing=false: the two-pass student oracle waits "
-         "(ROADMAP M1)"),
-        (not _wished((cfg.get("rng") or {}).get("plan", "auto"), True),
-         "rng.plan=false: the per-block fold_in oracle has no counterpart; "
-         "the port always draws a step plan (ROADMAP M1)"),
-        (any(s.get(k) is not None for k in (
-            "pos_embed_rope_shift_coords", "pos_embed_rope_jitter_coords",
-            "pos_embed_rope_rescale_coords")),
-         "RoPE coordinate augmentation waits (ROADMAP M1)"),
+        (any(n > 1 for n in sharded.values()),
+         "parallel." + ", parallel.".join(f"{a}={n}" for a, n in sharded.items()
+                                         if n > 1)
+         + ": sharded and model-parallel meshes wait (ROADMAP M7, M8); the "
+         "port trains on one card, set each to 1"),
         (bool(cfg.gram.use_loss), "gram.use_loss: the Gram loss waits "
          "(ROADMAP M2)"),
         (bool(cfg.distillation.enabled), "distillation waits (ROADMAP M10)"),

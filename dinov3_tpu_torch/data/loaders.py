@@ -7,9 +7,9 @@ the iterator stops and joins the producer. ``BackgroundIterator`` is that
 producer for any iterable (the synthetic stream uses it too).
 
 The dataset strings are the JAX package's (``"Folder:root=/data"``); the
-image folder, the synthetic images and ImageNet are ported, the other
-datasets wait (ROADMAP M5). Nothing here imports PIL: the datasets are
-imported when one is made.
+image folder, the synthetic images, ImageNet, ImageNet-22k and web shards
+are ported, ADE20K and the captions wait (ROADMAP M12). Nothing here
+imports PIL: the datasets are imported when one is made.
 """
 
 from __future__ import annotations
@@ -71,23 +71,25 @@ def resolve_dataset_str(cfg, dataset_str: str | None = None) -> str:
 
 
 # datasets of the JAX package that wait, by their dataset-string names
-_WAITING_DATASETS = ("ImageNet22k", "ADE20K", "CocoCaptions", "WebShards")
+_WAITING_DATASETS = ("ADE20K", "CocoCaptions")
 
 
 def make_dataset(dataset_str: str, transform: Optional[Callable] = None,
                  target_transform: Optional[Callable] = None, seed: int = 0):
     """``"ImageNet:split=TRAIN:root=/data/in1k"`` -> dataset instance
-    (``Folder``, ``Synthetic`` or ``ImageNet``); ``size``, ``image_size``
-    and ``n_classes`` are read as ints."""
+    (``Folder``, ``Synthetic``, ``ImageNet``, ``ImageNet22k`` or
+    ``WebShards``); ``size``, ``image_size`` and ``n_classes`` are read as
+    ints."""
     name, kwargs = _parse_dataset_str(dataset_str)
     if name in _WAITING_DATASETS:
         raise NotImplementedError(
-            f"dataset {name!r}: ImageNet-22k, web shards, tar files, ADE20K and "
-            "captions wait (ROADMAP M5)")
+            f"dataset {name!r}: ADE20K and captions wait with their tokenizer "
+            "(ROADMAP M12)")
     from dinov3_tpu_torch.data import datasets as D
 
     registry = {"Folder": D.ImageFolder, "Synthetic": D.SyntheticImages,
-                "ImageNet": D.ImageNet}
+                "ImageNet": D.ImageNet, "ImageNet22k": D.ImageNet22k,
+                "WebShards": D.WebShards}
     if name not in registry:
         raise ValueError(f"unknown dataset {name!r} (have {sorted(registry)})")
     for int_key in ("size", "image_size", "n_classes"):

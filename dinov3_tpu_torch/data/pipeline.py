@@ -1,8 +1,9 @@
-"""The SSL training pipeline for image folders (``dinov3_tpu/data/pipeline.py``
-``make_train_pipeline``): dataset string -> augmented, collated batches.
-Imports PIL (through the augmentation). It reads image folders only: the
-ImageNet dataset serves the evals, not yet the trainer (ROADMAP M5); the
-multi-resolution pipeline waits (ROADMAP M4)."""
+"""The SSL training pipeline (``dinov3_tpu/data/pipeline.py``
+``make_train_pipeline``): dataset string (``Folder:``, ``ImageNet:``,
+``ImageNet22k:``, ``WebShards:`` or ``Synthetic:``) -> augmented, collated
+batches; ``make_multires_train_pipeline`` combines one pipeline per crop
+size of a crop-size list (``data/multires.py``). Imports PIL (through the
+augmentation)."""
 
 from __future__ import annotations
 
@@ -60,11 +61,6 @@ def make_train_pipeline(cfg, global_batch_size: int, rank: int = 0,
                          f"{world_size} hosts")
     local_batch = global_batch_size // world_size
     dataset_str = resolve_dataset_str(cfg)
-    if dataset_str.split(":")[0] != "Folder":
-        raise NotImplementedError(
-            f"training dataset {dataset_str!r}: the trainer reads image folders "
-            "(Folder:root=...); its ImageNet and synthetic-image datasets wait "
-            "(ROADMAP M5)")
     augment = build_augmentation_from_cfg(cfg)
     dataset = make_dataset(dataset_str, transform=augment, seed=cfg.train.seed)
     loader = make_data_loader(
@@ -83,3 +79,33 @@ def make_train_pipeline(cfg, global_batch_size: int, rank: int = 0,
         prefetch_batches=cfg.data.get("prefetch", 2),
     )
     return iter(loader)
+
+
+def make_multires_train_pipeline(cfg, global_batch_size: int, rank: int = 0,
+                                 world_size: int = 1,
+                                 sampler_advance_batches: int = 0) -> Iterator[dict]:
+    """``make_train_pipeline``, or with crop-size lists one pipeline per
+    (global, local) size pair combined by ``crops.global_local_crop_pairs_ratios``
+    (``data/multires.py``). ``sampler_advance_batches`` resumes the combined
+    stream exactly: the combiner's choice stream is replayed to count the
+    batches each resolution gave in the skipped prefix, and each
+    pipeline's sampler advances by that many of its samples."""
+    from dinov3_tpu_torch.data.multires import (
+        CombineDataLoader,
+        multires_subconfigs,
+        split_advance,
+    )
+
+    local_batch = global_batch_size // max(1, world_size)
+    subs = multires_subconfigs(cfg)
+    if subs is None:
+        return make_train_pipeline(cfg, global_batch_size, rank, world_size,
+                                   sampler_advance=sampler_advance_batches * local_batch)
+    ratios = [r for _, r in subs]
+    counts = split_advance(cfg.train.seed, ratios, sampler_advance_batches)
+    loaders = [make_train_pipeline(sub, global_batch_size, rank, world_size,
+                                   sampler_advance=int(counts[j]) * local_batch)
+               for j, (sub, _) in enumerate(subs)]
+    combined = CombineDataLoader(loaders, ratios, seed=cfg.train.seed)
+    combined.advance(sampler_advance_batches)
+    return iter(combined)

@@ -6,8 +6,10 @@
         evaluation.val_dataset_path=ImageNet:split=VAL data.root=/data/in1k
 
 Restores the EMA teacher's backbone of the latest finalized checkpoint
-under ``--ckpt`` (this package's, or the JAX package's local-npz kind),
-extracts the features of the train and val sets (capped by
+under ``--ckpt`` (this package's, or the JAX package's local-npz kind), or
+loads Meta's released backbone weights with ``--meta-weights
+dinov3_vitg14.pth`` instead (``interop/torch_convert.py``; the config must
+name the same architecture), extracts the features of the train and val sets (capped by
 ``--max-*-samples``; 0 takes the whole set), runs k-NN at k = 10 and 20
 and the linear probe's lr sweep, and prints one JSON line (also written
 to ``--output``). ``MODEL.DEVICE=cpu`` runs on the CPU with the kernels'
@@ -23,8 +25,11 @@ import sys
 
 def get_args_parser():
     p = argparse.ArgumentParser("dinov3_tpu_torch standalone evaluation")
-    p.add_argument("--ckpt", required=True,
-                   help="checkpoint directory (the trainer's <output-dir>/ckpt)")
+    src = p.add_mutually_exclusive_group(required=True)
+    src.add_argument("--ckpt", default="",
+                     help="checkpoint directory (the trainer's <output-dir>/ckpt)")
+    src.add_argument("--meta-weights", default="",
+                     help="a Meta release backbone state_dict file (.pth)")
     p.add_argument("--config-file", default="", help="run recipe YAML")
     p.add_argument("--batch-size", type=int, default=256)
     p.add_argument("--probe-epochs", type=int, default=10)
@@ -51,7 +56,8 @@ def main(argv=None) -> dict:
 
     cfg = load_config(args.config_file or None, overrides=list(args.opts), n_devices=1)
     device = train_device(cfg)
-    model = build_model_for_eval(cfg, args.ckpt, device=device)
+    model = build_model_for_eval(cfg, args.ckpt or None, device=device,
+                                 meta_weights=args.meta_weights or None)
     if device == "cuda":
         build_kernels([FLASH_FWD, LAYERNORM_FWD])  # one nvcc each, in parallel
     results = do_eval(cfg, model, batch_size=args.batch_size,

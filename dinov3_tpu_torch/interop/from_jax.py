@@ -59,7 +59,7 @@ def _block_key(path: tuple) -> tuple[str, bool]:
     name = ".".join(mods)
     if leaf == "scale":  # norm1 / norm2
         return f"{name}.weight", False
-    if leaf == "kernel":  # mlp.fc1 / mlp.fc2 / mlp.w1..w3
+    if leaf == "kernel":  # mlp.fc1 / mlp.fc2, SwiGLU mlp.w12 / mlp.w3
         return f"{name}.weight", True
     return f"{name}.{leaf}", False  # biases, ls1/ls2 gamma
 

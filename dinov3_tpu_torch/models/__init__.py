@@ -4,6 +4,7 @@ only: ConvNeXt is not ported yet."""
 from __future__ import annotations
 
 import logging
+import os
 
 import torch
 
@@ -21,13 +22,15 @@ def backbone_kwargs_from_cfg(cfg, *, teacher: bool = True) -> dict:
     """``student`` section -> ``DinoVisionTransformer`` kwargs. The teacher
     (and serve) backbone is deterministic: no drop path, no activation
     checkpointing. The student takes ``student.drop_path_rate`` and
-    ``drop_path_mode``, and ``remat_mode(cfg)``. RoPE coordinate
-    augmentation is not ported (the recipes leave it null; the training
-    setup refuses it), and the TPU execution options (scan, sharding,
-    kernel dispatch thresholds) do not apply."""
+    ``drop_path_mode``, ``remat_mode(cfg)`` and the RoPE coordinate
+    augmentation settings (which only a training forward applies). The TPU execution options (scan, sharding, kernel dispatch
+    thresholds) do not apply (``configs/config.py check_train_slice``)."""
     s = cfg.student
     policy = Policy.from_cfg(cfg.compute_precision)
-    return dict(
+    # an override "+student.n_blocks=N" (a key the schema lacks) cuts the
+    # arch's depth, for smoke runs at full width
+    depth = {} if s.get("n_blocks") is None else {"n_blocks": int(s.n_blocks)}
+    return dict(**depth,
         remat="none" if teacher else remat_mode(cfg),
         patch_size=s.patch_size,
         drop_path_rate=0.0 if teacher else float(s.drop_path_rate),
@@ -49,6 +52,9 @@ def backbone_kwargs_from_cfg(cfg, *, teacher: bool = True) -> dict:
         pos_embed_rope_min_period=s.pos_embed_rope_min_period,
         pos_embed_rope_max_period=s.pos_embed_rope_max_period,
         pos_embed_rope_normalize_coords=s.pos_embed_rope_normalize_coords,
+        pos_embed_rope_shift_coords=None if teacher else s.get("pos_embed_rope_shift_coords"),
+        pos_embed_rope_jitter_coords=None if teacher else s.get("pos_embed_rope_jitter_coords"),
+        pos_embed_rope_rescale_coords=None if teacher else s.get("pos_embed_rope_rescale_coords"),
         pos_embed_rope_dtype=s.pos_embed_rope_dtype,
         dtype=policy.compute_dtype,
     )
@@ -93,14 +99,30 @@ def build_backbone(cfg, *, device="cuda", seed: int = 0) -> DinoVisionTransforme
 
 
 def build_model_for_eval(cfg, ckpt_dir: str | None = None, *, device="cuda",
-                         seed: int = 0) -> DinoVisionTransformer:
+                         seed: int = 0, meta_weights=None) -> DinoVisionTransformer:
     """The teacher backbone for feature extraction and evals, frozen, on
     ``device``. With ``ckpt_dir`` (a trainer's ``<output-dir>/ckpt``, of
     this package or the JAX package's local-npz kind) it holds the EMA
-    teacher's backbone of the latest finalized step, loaded strictly;
-    without, the seeded random init of ``build_backbone``."""
+    teacher's backbone of the latest finalized step, loaded strictly; with
+    ``meta_weights`` (a Meta release ``state_dict``, or the path of its
+    file) those weights, converted and loaded strictly
+    (``interop/torch_convert.py``); with neither, the seeded random init of
+    ``build_backbone``."""
+    if ckpt_dir and meta_weights is not None:
+        raise ValueError("pass ckpt_dir or meta_weights, not both")
     dev = resolve_device(device)
     model = build_backbone(cfg, device="cpu", seed=seed)
+    if meta_weights is not None:
+        from dinov3_tpu_torch.interop.torch_convert import (
+            load_backbone_from_meta,
+            read_meta_weights,
+        )
+
+        sd = (read_meta_weights(meta_weights) if isinstance(meta_weights, (str, os.PathLike))
+              else meta_weights)
+        load_backbone_from_meta(model, sd, strict=True)
+        logging.getLogger(LOGGER_NAME).info("eval model: Meta-layout weights (%d entries)",
+                                            len(sd))
     if ckpt_dir:
         from dinov3_tpu_torch.checkpoint import teacher_backbone_state_dict
 

@@ -5,7 +5,9 @@ Patch embed -> [CLS + storage tokens + patches] -> RoPE-attention blocks
 iBOT mask token (``forward``: the teacher's and the serve path's), the eval-time
 features of chosen blocks (``get_intermediate_layers``), the
 crop-packed training forward of global and local crops in one block stack
-(``forward(..., local_crops=...)``, with the step's drop-path plan), and
+(``forward(..., local_crops=...)``, with the step's drop-path plan and RoPE
+coordinate augmentation), the two-pass training forward (``forward`` of
+one crop kind at a time, ``crop_kind``), and
 the serve forward over host-packed multi-image planes
 (``packed_feature_forward``). Parameters carry the names of Meta's
 ``state_dict`` (``blocks.N.attn.qkv.weight``, ``patch_embed.proj.weight``,
@@ -65,6 +67,9 @@ class DinoVisionTransformer(nn.Module):
         pos_embed_rope_min_period: float | None = None,
         pos_embed_rope_max_period: float | None = None,
         pos_embed_rope_normalize_coords: str = "separate",
+        pos_embed_rope_shift_coords: float | None = None,
+        pos_embed_rope_jitter_coords: float | None = None,
+        pos_embed_rope_rescale_coords: float | None = None,
         pos_embed_rope_dtype: str = "fp32",
         remat: str = "none",
         dtype: torch.dtype = torch.bfloat16,
@@ -88,6 +93,11 @@ class DinoVisionTransformer(nn.Module):
         self.rope_min_period = pos_embed_rope_min_period
         self.rope_max_period = pos_embed_rope_max_period
         self.rope_normalize = pos_embed_rope_normalize_coords
+        # training-time coordinate augmentation (None: off), drawn by the
+        # step's plan (rng/plan.py)
+        self.rope_shift = pos_embed_rope_shift_coords
+        self.rope_jitter = pos_embed_rope_jitter_coords
+        self.rope_rescale = pos_embed_rope_rescale_coords
         self.rope_dtype = canonical_dtype(pos_embed_rope_dtype)
         self.dtype = dtype
 
@@ -120,6 +130,15 @@ class DinoVisionTransformer(nn.Module):
     @property
     def n_prefix(self) -> int:
         return 1 + self.n_storage_tokens
+
+    @property
+    def rope_aug(self) -> tuple | None:
+        """(shift, jitter, rescale) when a training forward augments the
+        RoPE coordinates, else None."""
+        aug = (self.rope_shift, self.rope_jitter, self.rope_rescale)
+        if self.pos_embed_type != "rope" or all(a is None for a in aug):
+            return None
+        return aug
 
     def init_weights(self, generator: torch.Generator) -> None:
         """The JAX init: truncated-normal(0.02) matmul weights, zero
@@ -159,12 +178,14 @@ class DinoVisionTransformer(nn.Module):
                             min_period=self.rope_min_period,
                             max_period=self.rope_max_period, device=device)
 
-    def _rope_table(self, h: int, w: int, device):
+    def _rope_table(self, h: int, w: int, device, aug: dict | None = None):
+        """The [1 + S + h*w, head_dim] (sin, cos) table; ``aug``: a training
+        forward's augmentation factors."""
         if self.pos_embed_type != "rope":
             return None
         sin, cos = rope_sincos(h, w, self._periods(device),
                                normalize=self.rope_normalize,
-                               dtype=self.rope_dtype)
+                               dtype=self.rope_dtype, aug=aug)
         return rope_with_identity_prefix(sin, cos, self.n_prefix)
 
     def _serve_rope(self, coords: torch.Tensor):
@@ -203,14 +224,19 @@ class DinoVisionTransformer(nn.Module):
         return x
 
     def _check_plan(self, train: bool, plan) -> dict | None:
-        """The drop-path plan a call consumes: none when deterministic; a
-        training call with drop path must bring one."""
+        """The plan a call consumes: none when deterministic; a training
+        call with drop path must bring its drop-path plan, and one with
+        RoPE augmentation its factors."""
         if not train:
             return None
         if self.drop_path_rate > 0.0 and not (plan or {}).get("drop_path"):
             raise ValueError(
                 "a training forward with drop_path_rate > 0 needs the step's "
-                "drop-path plan (rng/plan.py packed_pass_plan)")
+                "drop-path plan (rng/plan.py)")
+        if self.rope_aug is not None and "rope" not in (plan or {}):
+            raise ValueError(
+                "a training forward with RoPE coordinate augmentation needs "
+                "the step's augmentation factors (rng/plan.py)")
         return plan
 
     def _final_norms(self, x, *, crop_kind: str, train: bool):
@@ -231,24 +257,28 @@ class DinoVisionTransformer(nn.Module):
 
     def forward(self, x: torch.Tensor, masks: torch.Tensor | None = None, *,
                 train: bool = False, plan: dict | None = None,
-                local_crops: torch.Tensor | None = None) -> dict:
+                local_crops: torch.Tensor | None = None,
+                crop_kind: str = "global") -> dict:
         """Forward of same-resolution images x [B, H, W, C]; masks
         optional [B, T] bool (those patch tokens become the mask token).
 
         Returns x_norm_clstoken [B, D], x_storage_tokens [B, S, D],
         x_norm_patchtokens [B, T, D], x_prenorm [B, 1+S+T, D] and masks.
-        ``train`` with ``plan`` (the step's drop-path plan) is the student's
-        forward; with ``local_crops`` [n_l*B, h, w, C] the local crops are
+        ``train`` with ``plan`` (the pass's plan: {"drop_path": ...,
+        "rope": augmentation factors}) is the student's forward of one crop
+        kind (``crop_kind``: "local" picks the local-CLS norm where it is
+        untied); with ``local_crops`` [n_l*B, h, w, C] the local crops are
         packed k to a global-length row and run through the same block
-        stack (``_packed_forward``), and the dict also carries
-        ``local_cls`` [n_l*B, D] and ``local_storage_tokens``."""
+        stack (``_packed_forward``, ``plan["rope"]`` then holds "global"
+        and "local" factors), and the dict also carries ``local_cls``
+        [n_l*B, D] and ``local_storage_tokens``."""
         plan = self._check_plan(train, plan)
         if local_crops is not None:
             return self._packed_forward(x, masks, local_crops, plan, train)
         tokens, (h, w) = self._embed(x, masks)
-        out = self._run_blocks(tokens, self._rope_table(h, w, x.device),
-                               plan=plan, train=train)
-        x_cls_reg, x_patch = self._final_norms(out, crop_kind="global",
+        rope = self._rope_table(h, w, x.device, aug=(plan or {}).get("rope"))
+        out = self._run_blocks(tokens, rope, plan=plan, train=train)
+        x_cls_reg, x_patch = self._final_norms(out, crop_kind=crop_kind,
                                                train=train)
         return {
             "x_norm_clstoken": x_cls_reg[:, 0],
@@ -278,8 +308,12 @@ class DinoVisionTransformer(nn.Module):
         seg = torch.from_numpy(packed_segment_ids(layout)).to(x.device, non_blocking=True)
         rope = None
         if self.pos_embed_type == "rope":
-            rope = rope_packed_rows(self._rope_table(hg, wg, x.device),
-                                    self._rope_table(hl, wl, x.device), layout)
+            # each crop kind's table takes its own factors, those the
+            # two-pass forward takes
+            aug = (plan or {}).get("rope") or {}
+            rope = rope_packed_rows(
+                self._rope_table(hg, wg, x.device, aug=aug.get("global")),
+                self._rope_table(hl, wl, x.device, aug=aug.get("local")), layout)
         out = self._run_blocks(tokens, rope, seg=seg, plan=plan, train=train)
         g_rows, p_rows = split_packed_output(out, layout)
         l_tok = p_rows[:, : layout.k * layout.seq_local]

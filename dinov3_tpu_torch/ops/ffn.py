@@ -1,5 +1,7 @@
 """Feed-forward layers (``dinov3_tpu/ops/ffn.py``): the standard ViT MLP
-with exact (erf) GELU. SwiGLU and MoE are not ported yet."""
+with exact (erf) GELU, and SwiGLU with one fused ``[gate | value]``
+projection (``w12``) and its hidden width aligned to 8, 64 or 128
+(``swiglu``, ``swiglu64``, ``swiglu128``). MoE is not ported yet."""
 
 from __future__ import annotations
 
@@ -28,11 +30,42 @@ class Mlp(nn.Module):
         return dense(x, self.fc2.weight, self.fc2.bias, self.dtype)
 
 
+def swiglu_hidden_dim(hidden_dim: int, align_to: int = 8) -> int:
+    """The 2/3 rule, rounded up to a multiple of ``align_to``."""
+    d = int(hidden_dim * 2 / 3)
+    return (d + align_to - 1) // align_to * align_to
+
+
+class SwiGLUFFN(nn.Module):
+    """``w3(silu(gate) * value)`` with ``[gate | value] = w12(x)``: one
+    product for both halves, as the JAX ``SwiGLUFFN`` computes it. Meta's
+    ``w1`` (gate) and ``w2`` (value) are the two halves of ``w12``'s rows
+    (``interop/torch_convert.py``)."""
+
+    def __init__(self, dim: int, hidden_dim: int, out_dim: int | None = None,
+                 use_bias: bool = True, align_to: int = 8,
+                 dtype: torch.dtype = torch.bfloat16):
+        super().__init__()
+        self.dtype = dtype
+        self.hidden = swiglu_hidden_dim(hidden_dim, align_to)
+        self.w12 = nn.Linear(dim, 2 * self.hidden, bias=use_bias)
+        self.w3 = nn.Linear(self.hidden, out_dim or dim, bias=use_bias)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        gate, value = dense(x, self.w12.weight, self.w12.bias, self.dtype).chunk(2, dim=-1)
+        return dense(F.silu(gate) * value, self.w3.weight, self.w3.bias, self.dtype)
+
+
+SWIGLU_ALIGN = {"swiglu": 8, "swiglu64": 64, "swiglu128": 128}
+
+
 def make_ffn_layer(kind: str, dim: int, hidden_dim: int, **kwargs) -> nn.Module:
     if kind == "mlp":
         return Mlp(dim, hidden_dim, **kwargs)
-    if kind in ("swiglu", "swiglu64", "swiglu128", "moe"):
+    if kind in SWIGLU_ALIGN:
+        return SwiGLUFFN(dim, hidden_dim, align_to=SWIGLU_ALIGN[kind], **kwargs)
+    if kind == "moe":
         raise NotImplementedError(
-            f"ffn_layer={kind!r} is not ported yet: SwiGLU comes with the "
-            "ViT-7B slice and MoE with the tail slice of the port")
+            "ffn_layer='moe' is not ported yet: MoE comes with the tail slice "
+            "of the port (ROADMAP M12)")
     raise ValueError(f"unknown ffn layer {kind!r}")

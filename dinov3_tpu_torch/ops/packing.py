@@ -65,6 +65,18 @@ def make_packed_layout(n_global_rows: int, n_local: int, seq_global: int,
                         n_prefix=n_prefix)
 
 
+def packed_layout(cfg, batch: dict) -> PackedLayout:
+    """The packed student pass's layout for this batch's crop shapes."""
+    p = cfg.student.patch_size
+    n_prefix = 1 + int(cfg.student.get("n_storage_tokens", 0) or 0)
+    g, l = batch["global_crops"], batch["local_crops"]
+    return make_packed_layout(
+        n_global_rows=g.shape[0], n_local=l.shape[0],
+        seq_global=n_prefix + (g.shape[1] // p) * (g.shape[2] // p),
+        seq_local=n_prefix + (l.shape[1] // p) * (l.shape[2] // p),
+        n_prefix=n_prefix)
+
+
 def pack_local_rows(l_tokens: torch.Tensor, layout: PackedLayout) -> torch.Tensor:
     """[n_local, N_l, D] -> [P, N_g, D]: k sequences per row, zero pad."""
     P, k, N_l = layout.n_packed_rows, layout.k, layout.seq_local

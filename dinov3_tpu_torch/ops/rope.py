@@ -1,7 +1,14 @@
 """2-D rotary position embeddings for ViT patch grids
-(``dinov3_tpu/ops/rope.py``) without coordinate augmentation (the
-recipe's shift, jitter and rescale are null), plus the per-row tables of
-the crop-packed training batch (``rope_packed_rows``).
+(``dinov3_tpu/ops/rope.py``), with the training-time coordinate
+augmentation (a global shift, a per-axis log-uniform jitter and an
+isotropic log-uniform rescale, ``student.pos_embed_rope_*_coords``), plus
+the per-row tables of the crop-packed training batch
+(``rope_packed_rows``).
+
+The augmentation factors come from the step's plan (``rng/plan.py``):
+``rope_aug_values`` turns five uniforms into them, as the JAX plan does
+from its one fused draw, and ``augment_coords`` draws them in three
+separate draws from a generator, as the JAX legacy path does.
 
 Angles are computed in fp32 as 2*pi*coords/periods with periods
 ``base ** (2j / (head_dim/2))`` in fp32, in the reference's order, so
@@ -52,6 +59,46 @@ def patch_coords(H: int, W: int, normalize: str = "separate",
     return 2.0 * coords.reshape(-1, 2) - 1.0
 
 
+def rope_aug_values(u: torch.Tensor, shift: float | None = None,
+                    jitter: float | None = None,
+                    rescale: float | None = None) -> dict:
+    """Five uniforms in [0, 1) -> the augmentation factors: "shift" [2]
+    ~ U[-shift, shift], "jitter" [2] and "rescale" [1] log-uniform over
+    [1/j, j]; a null setting gives no entry."""
+    out = {}
+    if shift is not None:
+        out["shift"] = (2.0 * u[0:2] - 1.0) * shift
+    if jitter is not None:
+        out["jitter"] = torch.exp((2.0 * u[2:4] - 1.0) * math.log(jitter))
+    if rescale is not None:
+        out["rescale"] = torch.exp((2.0 * u[4:5] - 1.0) * math.log(rescale))
+    return out
+
+
+def augment_coords(generator: torch.Generator, shift: float | None = None,
+                   jitter: float | None = None,
+                   rescale: float | None = None) -> dict:
+    """The factors of ``rope_aug_values`` from three separate draws of
+    ``generator`` (shift, jitter, rescale, each drawn whether set or not),
+    the port of the JAX ``augment_coords`` draws."""
+    u = torch.cat([torch.rand(2, generator=generator),
+                   torch.rand(2, generator=generator),
+                   torch.rand(1, generator=generator)])
+    return rope_aug_values(u, shift, jitter, rescale)
+
+
+def augment_coords_planned(coords: torch.Tensor, aug: dict) -> torch.Tensor:
+    """coords [..., 2] shifted, then scaled per axis, then scaled by one
+    factor, with the factors of ``rope_aug_values``."""
+    if "shift" in aug:
+        coords = coords + aug["shift"].to(coords)
+    if "jitter" in aug:
+        coords = coords * aug["jitter"].to(coords)
+    if "rescale" in aug:
+        coords = coords * aug["rescale"].to(coords)
+    return coords
+
+
 def rope_angles_sincos(coords: torch.Tensor, periods: torch.Tensor,
                        dtype=torch.float32):
     """coords [..., 2] -> (sin, cos) [..., 4 * len(periods)]: the
@@ -63,9 +110,14 @@ def rope_angles_sincos(coords: torch.Tensor, periods: torch.Tensor,
 
 
 def rope_sincos(H: int, W: int, periods: torch.Tensor,
-                normalize: str = "separate", dtype=torch.float32):
-    """(sin, cos), each [H*W, head_dim], for an H x W patch grid."""
+                normalize: str = "separate", dtype=torch.float32,
+                aug: dict | None = None):
+    """(sin, cos), each [H*W, head_dim], for an H x W patch grid; ``aug``:
+    the augmentation factors (``rope_aug_values``) applied to the fp32
+    coordinates first."""
     coords = patch_coords(H, W, normalize, device=periods.device)
+    if aug:
+        coords = augment_coords_planned(coords, aug)
     return rope_angles_sincos(coords, periods, dtype)
 
 

@@ -412,14 +412,15 @@ def serve_layout_from_cfg(cfg) -> ServeLayout:
 
 def build_serve_engine(cfg, state_dict: dict | None = None, *,
                        ckpt_dir: str | None = None, device="cuda",
-                       seed: int = 0, warn: bool = True):
+                       seed: int = 0, warn: bool = True, meta_weights=None):
     """The config-level entry: weights (``state_dict``), the EMA teacher
-    of a training checkpoint (``ckpt_dir``) or a seeded init -> bf16
-    serving model on ``device`` -> the packed engine, or with
+    of a training checkpoint (``ckpt_dir``), Meta release weights
+    (``meta_weights``, a Meta-named ``state_dict`` or its file) or a seeded
+    init -> bf16 serving model on ``device`` -> the packed engine, or with
     ``serve.continuous_packing=false`` the oracle named by
     ``serve.oracle``."""
     model = load_serving_model(cfg, state_dict, ckpt_dir=ckpt_dir,
-                               device=device, seed=seed)
+                               device=device, seed=seed, meta_weights=meta_weights)
     s = cfg.get("serve") or {}
     layout = serve_layout_from_cfg(cfg)
     flush_ms = float(s.get("flush_ms", 10.0) or 10.0)

@@ -25,15 +25,18 @@ def cast_serving_tree(state_dict: dict, dtype=torch.bfloat16) -> dict:
 
 def load_serving_model(cfg, state_dict: dict | None = None, *,
                        ckpt_dir: str | None = None, device="cuda", seed: int = 0,
-                       dtype=torch.bfloat16):
+                       dtype=torch.bfloat16, meta_weights=None):
     """The configured backbone with ``state_dict`` loaded (strictly), or
-    the EMA teacher of a training checkpoint under ``ckpt_dir``
-    (``build_model_for_eval``), or a random init from ``seed``; cast to
-    ``dtype``, on ``device``."""
-    if state_dict is not None and ckpt_dir:
-        raise ValueError("pass state_dict or ckpt_dir, not both")
+    the EMA teacher of a training checkpoint under ``ckpt_dir``, or Meta
+    release weights (``meta_weights``: a ``state_dict`` in Meta's names or
+    its file; ``build_model_for_eval``), or a random init from ``seed``;
+    cast to ``dtype``, on ``device``."""
+    if (state_dict is not None) + bool(ckpt_dir) + (meta_weights is not None) > 1:
+        raise ValueError("state_dict, ckpt_dir and meta_weights are alternatives: "
+                         "pass one, not both of two")
     dev = resolve_device(device)
-    model = build_model_for_eval(cfg, ckpt_dir, device="cpu", seed=seed)
+    model = build_model_for_eval(cfg, ckpt_dir, device="cpu", seed=seed,
+                                 meta_weights=meta_weights)
     if state_dict is not None:
         model.load_state_dict(state_dict)
     model.load_state_dict(cast_serving_tree(model.state_dict(), dtype),

@@ -15,7 +15,6 @@ from dinov3_tpu_torch.train.train_step import (
     TrainState,
     make_train_launch,
     make_train_step,
-    packed_layout,
     split_microbatches,
 )
 
@@ -42,21 +41,15 @@ def build_train_setup(cfg, example_batch: dict, *, device="cuda",
     card raises; ``device="cpu"`` runs the kernels' plain versions). The
     weights are drawn on the CPU from ``seed``, so they do not depend on
     the device; the step's drop-path plans are keyed by (seed,
-    iteration). ``example_batch`` is checked against the slice's crop
-    geometry (local crops must pack at least 2 to a global row) and
-    against ``optim.accum_steps`` (it must divide the image batch; raises
-    ``ValueError``). ``n_blocks`` cuts the configured depth (None keeps
-    it)."""
+    iteration). ``example_batch`` is checked against ``optim.accum_steps``
+    (it must divide the image batch; raises ``ValueError``). ``n_blocks``
+    cuts the configured depth (None keeps it)."""
     dev = resolve_device(device)
     meta = SSLMetaArch(cfg, seed=seed, n_blocks=n_blocks)
     accum = int(cfg.optim.get("accum_steps", 1) or 1)
-    # the packed layout is fixed by the crop sizes and the microbatch
-    # split by accum_steps: fail here, not mid-step
-    layout = packed_layout(cfg, split_microbatches(example_batch, accum)[0])
-    if layout.k < 2:
-        raise ValueError(
-            f"crop packing needs k >= 2 local sequences per global row "
-            f"(N_g={layout.seq_global}, N_l={layout.seq_local})")
+    # the microbatch split is fixed by accum_steps: fail here, not
+    # mid-step (a batch whose local crops do not pack runs two passes)
+    split_microbatches(example_batch, accum)
     meta = meta.to(dev)
     schedules = build_schedules(cfg)
     o = cfg.optim

@@ -1,5 +1,6 @@
 """DINOv3 SSL meta-architecture on one device
-(``dinov3_tpu/train/ssl_meta_arch.py``: crop-packed student, teacher
+(``dinov3_tpu/train/ssl_meta_arch.py``: the crop-packed student, or the
+two-pass student under ``model.crop_packing=false``; teacher
 targets by Sinkhorn-Knopp or softmax centering, streamed K-tile by K-tile
 (``loss.streaming_targets``, the default) or materialized, DINO + iBOT +
 KoLeo losses).
@@ -14,16 +15,27 @@ Batch contract (``data/synthetic.py``): global_crops [2B, S, S, 3],
 local_crops [n_l*B, s, s, 3], masks [2B, T] bool, mask_indices [2B, M]
 int (per-image token index, 0-padded), mask_weights [2B, M] fp32
 (1/n_masked of the image, 0 for padding), mask_valid [2B, M] bool.
+
+The student's randomness comes from the step's plan (``rng/plan.py``):
+``draw_plan`` makes it, by the step plan or, under ``rng.plan=false``,
+by per-pass and per-block generators; tests hand the JAX plan in instead.
 """
 
 from __future__ import annotations
 
 import copy
+import logging
 
 import torch
 from torch import nn
 
-from dinov3_tpu_torch.configs.config import check_train_slice, streaming_targets_wished
+from dinov3_tpu_torch.configs.config import (
+    check_train_slice,
+    crop_packing_wished,
+    rng_plan_wished,
+    streaming_targets_wished,
+)
+from dinov3_tpu_torch.logging_utils import LOGGER_NAME
 from dinov3_tpu_torch.losses import (
     ibot_loss_from_spec,
     koleo_loss,
@@ -36,7 +48,11 @@ from dinov3_tpu_torch.losses import (
 from dinov3_tpu_torch.models import ARCHS, backbone_kwargs_from_cfg
 from dinov3_tpu_torch.ops.common import Policy, canonical_dtype
 from dinov3_tpu_torch.ops.dino_head import DINOHead
+from dinov3_tpu_torch.ops.packing import packed_layout
+from dinov3_tpu_torch.rng.plan import fold_in_plan, step_generator, step_plan
 from dinov3_tpu_torch.train.optimizer import ema_
+
+logger = logging.getLogger(LOGGER_NAME)
 
 
 def _head(cfg_section, in_dim: int, dtype) -> DINOHead:
@@ -51,7 +67,8 @@ def _head(cfg_section, in_dim: int, dtype) -> DINOHead:
 class SSLMetaArch(nn.Module):
     def __init__(self, cfg, seed: int = 0, n_blocks: int | None = None):
         """``n_blocks`` cuts the configured depth (card-vs-CPU checks at
-        full width); None keeps it."""
+        full width); None keeps it (``student.n_blocks``, else the
+        arch's)."""
         super().__init__()
         check_train_slice(cfg)
         arch = cfg.student.arch
@@ -70,9 +87,15 @@ class SSLMetaArch(nn.Module):
         # streaming K-tiled CE (losses/streaming.py) or materialized targets
         self.streaming_targets = streaming_targets_wished(cfg)
         self.loss_k_tile = int((cfg.get("loss") or {}).get("k_tile") or 8192)
+        # the crop-packed student (default) or the two-pass oracle; a batch
+        # whose local crops do not pack two to a row runs the two passes
+        self.crop_packing = crop_packing_wished(cfg)
+        # the step plan (default) or the per-pass, per-block generators
+        self.rng_plan = rng_plan_wished(cfg)
+        self._warned_unpacked = False
         dtype = Policy.from_cfg(cfg.compute_precision).compute_dtype
         depth = {} if n_blocks is None else {"n_blocks": n_blocks}
-        backbone = ARCHS[arch](**backbone_kwargs_from_cfg(cfg, teacher=False), **depth)
+        backbone = ARCHS[arch](**{**backbone_kwargs_from_cfg(cfg, teacher=False), **depth})
         self.embed_dim = backbone.embed_dim
         self.student = nn.ModuleDict({
             "backbone": backbone,
@@ -84,8 +107,8 @@ class SSLMetaArch(nn.Module):
         self.student["dino_head"].init_weights(g)
         self.student["ibot_head"].init_weights(g)
         self.student.float()
-        teacher_backbone = ARCHS[arch](**backbone_kwargs_from_cfg(cfg, teacher=True),
-                                       **depth)
+        teacher_backbone = ARCHS[arch](**{**backbone_kwargs_from_cfg(cfg, teacher=True),
+                                          **depth})
         self.teacher = nn.ModuleDict({
             "backbone": teacher_backbone,
             "dino_head": copy.deepcopy(self.student["dino_head"]),
@@ -186,16 +209,62 @@ class SSLMetaArch(nn.Module):
             "masked_target": masked_target,
         }, new_state
 
+    def packs(self, batch: dict) -> bool:
+        """Whether this batch's student runs crop-packed: asked for, and at
+        least two local sequences fit a global row (else the two passes,
+        with a warning, as the reference falls back)."""
+        if not self.crop_packing:
+            return False
+        if packed_layout(self.cfg, batch).k >= 2:
+            return True
+        if not self._warned_unpacked:
+            logger.warning("model.crop_packing: local sequences do not pack two "
+                           "to a global row; the student runs two passes")
+            self._warned_unpacked = True
+        return False
+
+    def plan_rows(self, batch: dict) -> dict:
+        """The rows each student pass draws its drop path over:
+        {"packed": 2B + P}, or {"global": 2B, "local": n_l*B}."""
+        if self.packs(batch):
+            return {"packed": packed_layout(self.cfg, batch).rows_total}
+        return {"global": batch["global_crops"].shape[0],
+                "local": batch["local_crops"].shape[0]}
+
+    def draw_plan(self, seed: int, iteration: int, batch: dict,
+                  microbatch: int | None = None) -> dict:
+        """The student's plan for this batch at ``iteration``: the step
+        plan from ``step_generator`` or, under ``rng.plan=false``, the
+        per-pass, per-block generators of ``fold_in_plan``."""
+        bb = self.student["backbone"]
+        kw = dict(n_blocks=bb.n_blocks, rows=self.plan_rows(batch),
+                  rate=bb.drop_path_rate, mode=bb.drop_path_mode,
+                  rope_aug=bb.rope_aug)
+        if self.rng_plan:
+            return step_plan(step_generator(seed, iteration, microbatch), **kw)
+        return fold_in_plan(seed, iteration, microbatch, **kw)
+
     def get_student_output(self, batch: dict, plan: dict | None):
-        """One crop-packed backbone pass over global and local crops, then
-        the heads: (global_out, local_out) dicts as the reference's."""
+        """The student backbone over global and local crops, crop-packed in
+        one pass or in two (``packs``), then the heads: (global_out,
+        local_out) dicts as the reference's. ``plan``: the packed pass's
+        plan, or {"global": plan, "local": plan} for the two passes; a
+        JAX step plan ({"global", "local", "packed"}) serves either."""
         g, l = batch["global_crops"], batch["local_crops"]
         n_g, n_l = 2, self.n_local_crops
         B = g.shape[0] // n_g
-        out = self.student["backbone"](g, batch["masks"], train=True,
-                                       plan=plan, local_crops=l)
-        g_cls, g_patch = out["x_norm_clstoken"], out["x_norm_patchtokens"]
-        l_cls = out["local_cls"]
+        plan = plan or {}
+        bb = self.student["backbone"]
+        if self.packs(batch):
+            out = bb(g, batch["masks"], train=True, plan=plan.get("packed", plan),
+                     local_crops=l)
+            g_cls, g_patch = out["x_norm_clstoken"], out["x_norm_patchtokens"]
+            l_cls = out["local_cls"]
+        else:
+            g_out = bb(g, batch["masks"], train=True, plan=plan.get("global"))
+            l_out = bb(l, None, train=True, plan=plan.get("local"), crop_kind="local")
+            g_cls, g_patch = g_out["x_norm_clstoken"], g_out["x_norm_patchtokens"]
+            l_cls = l_out["x_norm_clstoken"]
         masked = self._gather_masked(g_patch, batch["mask_indices"])
         M = masked.shape[1]
         masked_logits = self.student["ibot_head"](masked.reshape(-1, self.embed_dim))
@@ -262,8 +331,8 @@ class SSLMetaArch(nn.Module):
     def forward(self, batch: dict, *, teacher_temp: float, iteration: int = 0,
                 plan: dict | None = None, state: dict | None = None):
         """(total loss, {loss name: scalar}, new center state) of one
-        batch; gradients reach only the student. ``plan``: the packed
-        pass's drop-path plan; ``state``: the incoming centers
+        batch; gradients reach only the student. ``plan``: the student's
+        plan (``get_student_output``); ``state``: the incoming centers
         (``init_state()`` when None)."""
         if state is None:
             state = self.init_state(batch["global_crops"].device)

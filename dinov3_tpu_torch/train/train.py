@@ -30,12 +30,20 @@ probe on its frozen features); each result is appended to
 generator the step uses: a run's losses are those of the same run
 without evals.
 
+Crop-size lists (``crops.global_crops_size: [224, 256]`` with a local
+list of the same length) draw each batch from one resolution's stream
+(``data/multires.py``), resumably. ``--dump-weights f.npz`` writes the
+final student and teacher as a flat ``.npz`` (``utils.dump_weights``).
+``train.scan_layers`` is an XLA compile option: the port's block stack is
+unrolled whatever it says, and the run logs it.
+
 Refused at start, each naming the ROADMAP item it waits for: distillation, multidistillation, high-res fine-tuning and
-pretrained weights (M10), the Gram anchor and its refresh (M12), the
-profiler, tensorboard and NaN-debug flags (M11), ``--dump-weights`` (M5),
-multi-resolution crop lists (M4) and an elastic ``--resume-topology``
-(M12). There is no preemption handler (M12): a signal ends the run, and
-the next one resumes from the last finalized checkpoint.
+pretrained weights (M10), the Gram anchor, its refresh and crop-size
+lists naming Gram teacher sizes (M12), the profiler, tensorboard and
+NaN-debug flags (M11), sharded meshes (M7, ``configs/config.py``) and an
+elastic ``--resume-topology`` (M12). There is no preemption handler
+(M12): a signal ends the run, and the next one resumes from the last
+finalized checkpoint.
 """
 
 from __future__ import annotations
@@ -54,7 +62,12 @@ import torch
 
 from dinov3_tpu_torch.checkpoint import Checkpointer
 from dinov3_tpu_torch.configs import global_batch_size, load_config, setup_job
-from dinov3_tpu_torch.data import SyntheticDataset
+from dinov3_tpu_torch.data import (
+    CombineDataLoader,
+    SyntheticDataset,
+    multires_subconfigs,
+    split_advance,
+)
 from dinov3_tpu_torch.data.loaders import BackgroundIterator
 from dinov3_tpu_torch.logging_utils import (
     LOGGER_NAME,
@@ -86,7 +99,6 @@ _WAITING_FLAGS = (
     ("profile_steps", "--profile-steps: profiler traces wait (ROADMAP M11)"),
     ("tensorboard", "--tensorboard: tensorboard mirroring waits (ROADMAP M11)"),
     ("debug_nans", "--debug-nans: the non-finite sanitizer waits (ROADMAP M11)"),
-    ("dump_weights", "--dump-weights waits (ROADMAP M5)"),
 )
 
 
@@ -105,7 +117,7 @@ def get_args_parser():
     p.add_argument("--ref-losses", default="",
                    help="compare per-iteration losses against a recorded file")
     p.add_argument("--dump-weights", default="",
-                   help="dump final params to this .npz (waits, ROADMAP M5)")
+                   help="dump the final student and teacher to this .npz")
     p.add_argument("--benchmark", type=int, default=0, metavar="N",
                    help="time the last N iterations and report img/s")
     p.add_argument("--self-check", action="store_true",
@@ -155,8 +167,10 @@ def refuse_waiting(cfg, args, total_iters: int) -> None:
         (bool(cfg.gram.get("ckpt")) or bool(cfg.gram.use_loss and cfg.gram.rep_update
                                             and not cfg.gram.ema_teacher),
          "the Gram anchor and its refresh wait (ROADMAP M12)"),
-        (isinstance(cfg.crops.global_crops_size, (list, tuple)),
-         "crop-size lists (multi-resolution recipes) wait (ROADMAP M4)"),
+        (isinstance(cfg.crops.global_crops_size, (list, tuple))
+         and bool(cfg.crops.get("gram_teacher_crops_size")),
+         "crop-size lists naming Gram teacher sizes wait with the Gram anchor "
+         "(ROADMAP M12)"),
     ]
     for refused, msg in waits:
         if refused:
@@ -173,18 +187,30 @@ def build_data_iterator(cfg, batch_size: int, start_iter: int = 0,
                         pin: bool = False):
     """Host batches on a producer thread, starting at batch ``start_iter``
     (resume). Close it to stop the thread. ``pin``: hand the synthetic
-    batches over in pinned memory."""
+    batches over in pinned memory. With crop-size lists, one stream per
+    resolution (the synthetic one of resolution j seeded ``train.seed +
+    7919 j``, as in the JAX trainer), combined by ``CombineDataLoader``."""
     backend = cfg.data.backend
     if backend == "synthetic":
-        source = SyntheticDataset(cfg, batch_size, seed=cfg.train.seed,
-                                  advance=start_iter)
+        subs = multires_subconfigs(cfg)
+        if subs is None:
+            source = SyntheticDataset(cfg, batch_size, seed=cfg.train.seed,
+                                      advance=start_iter)
+        else:
+            ratios = [r for _, r in subs]
+            counts = split_advance(cfg.train.seed, ratios, start_iter)
+            source = CombineDataLoader(
+                [SyntheticDataset(sub, batch_size, seed=cfg.train.seed + 7919 * j,
+                                  advance=int(counts[j]))
+                 for j, (sub, _) in enumerate(subs)], ratios, seed=cfg.train.seed)
+            source.advance(start_iter)
         return BackgroundIterator(source, depth=int(cfg.data.get("prefetch", 2) or 2),
                                   transform=pin_batch if pin else None)
     if backend in ("folder", "imagenet"):
-        from dinov3_tpu_torch.data.pipeline import make_train_pipeline
+        from dinov3_tpu_torch.data.pipeline import make_multires_train_pipeline
 
-        return make_train_pipeline(cfg, batch_size,
-                                   sampler_advance=start_iter * batch_size)
+        return make_multires_train_pipeline(cfg, batch_size,
+                                            sampler_advance_batches=start_iter)
     raise ValueError(f"unknown data backend {backend!r}")
 
 
@@ -196,7 +222,10 @@ def resolved_engine(setup) -> dict:
     return {"targets": "streaming" if meta.streaming_targets else "materialized",
             "centering": meta.centering, "k_tile": meta.loss_k_tile,
             "remat": meta.student["backbone"].remat,
-            "accum_steps": int(setup.cfg.optim.get("accum_steps", 1) or 1)}
+            "accum_steps": int(setup.cfg.optim.get("accum_steps", 1) or 1),
+            "crop_packing": meta.crop_packing, "rng_plan": meta.rng_plan,
+            # an XLA compile option: the port's block stack is unrolled
+            "scan_layers": bool(setup.cfg.train.get("scan_layers", False))}
 
 
 def run_eval(cfg, teacher_backbone, it: int, out_dir: str) -> dict:
@@ -265,9 +294,13 @@ def do_train(cfg, args) -> dict:
         logger.info("device %s | batch %d | setup %.1f s", device, B,
                     time.perf_counter() - t0)
         engine = resolved_engine(setup)
-        logger.info("targets %s (%s, k_tile %d) | remat %s | accum_steps %d",
-                    engine["targets"], engine["centering"], engine["k_tile"],
-                    engine["remat"], engine["accum_steps"])
+        logger.info("targets %s (%s, k_tile %d) | remat %s | accum_steps %d | "
+                    "crop_packing %s | rng.plan %s", engine["targets"],
+                    engine["centering"], engine["k_tile"], engine["remat"],
+                    engine["accum_steps"], engine["crop_packing"], engine["rng_plan"])
+        if engine["scan_layers"]:
+            logger.info("train.scan_layers=true is an XLA compile option; the "
+                        "port runs its block stack unrolled, the same numbers")
         if args.self_check:
             from dinov3_tpu_torch.train.self_check import run_self_check
 
@@ -377,6 +410,10 @@ def do_train(cfg, args) -> dict:
         result["img_per_sec"] = timer.img_per_sec(B)
         logger.info("benchmark: %.1f ms/step, %.1f img/s over %d steps",
                     result["ms_per_step"], result["img_per_sec"], timer.n_intervals)
+    if args.dump_weights:
+        from dinov3_tpu_torch.utils import dump_weights
+
+        result["dump_weights"] = dump_weights(args.dump_weights, state.meta)
     logger.info("training done at iteration %d, final loss %.4f", state.step, last_loss)
     return result
 

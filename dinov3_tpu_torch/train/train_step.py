@@ -1,6 +1,6 @@
 """The SSL training step (``dinov3_tpu/train/train_step.py``
-``make_train_step``): teacher forward and targets -> crop-packed student
-forward -> losses -> student backward -> per-submodel clip, scheduled
+``make_train_step``): teacher forward and targets -> student forward
+(crop-packed, or two passes) -> losses -> student backward -> per-submodel clip, scheduled
 AdamW and the teacher EMA from the updated student (``train/optimizer.py``).
 With ``optim.accum_steps`` > 1 the forward and backward run once per
 microbatch (``split_microbatches``) before the one update.
@@ -20,8 +20,7 @@ import dataclasses
 import numpy as np
 import torch
 
-from dinov3_tpu_torch.ops.packing import make_packed_layout
-from dinov3_tpu_torch.rng.plan import packed_pass_plan, plan_to_device, step_generator
+from dinov3_tpu_torch.rng.plan import plan_to_device
 from dinov3_tpu_torch.train.optimizer import AdamWState, ScheduledAdamW
 from dinov3_tpu_torch.train.ssl_meta_arch import SSLMetaArch
 
@@ -102,30 +101,18 @@ def split_microbatches(batch: dict, accum_steps: int) -> list[dict]:
     return [{k: v[j] for k, v in parts.items()} for j in range(accum_steps)]
 
 
-def packed_layout(cfg, batch: dict):
-    """The packed student pass's layout for this batch's crop shapes."""
-    p = cfg.student.patch_size
-    n_prefix = 1 + int(cfg.student.get("n_storage_tokens", 0) or 0)
-    g, l = batch["global_crops"], batch["local_crops"]
-    return make_packed_layout(
-        n_global_rows=g.shape[0], n_local=l.shape[0],
-        seq_global=n_prefix + (g.shape[1] // p) * (g.shape[2] // p),
-        seq_local=n_prefix + (l.shape[1] // p) * (l.shape[2] // p),
-        n_prefix=n_prefix)
-
-
 def make_train_launch(optimizer: ScheduledAdamW, seed: int = 0,
                       accum_steps: int = 1):
     """Returns ``launch(state, batch, scalars, plan=None) -> (state,
     StepMetrics)``: the step, queued on the device with no host read.
 
     ``scalars``: {"teacher_temp", "momentum"} of this iteration
-    (``TrainSetup.scalars``). ``plan``: the packed pass's drop-path plan
-    (torch or numpy arrays, e.g. the JAX plan's ``["packed"]``), or with
-    ``accum_steps`` > 1 a list of one plan per microbatch; when it is
-    given the step draws nothing, else it draws its own from a generator
-    keyed by (seed, iteration), or by (seed, iteration, j) for microbatch
-    j.
+    (``TrainSetup.scalars``). ``plan``: the student's plan (torch or
+    numpy arrays, e.g. the JAX plan's; ``SSLMetaArch.get_student_output``),
+    or with ``accum_steps`` > 1 a list of one plan per microbatch; when it
+    is given the step draws nothing, else it draws its own
+    (``SSLMetaArch.draw_plan``) keyed by (seed, iteration), or by (seed,
+    iteration, j) for microbatch j.
 
     ``accum_steps`` > 1 (``optim.accum_steps``): for each microbatch of
     ``split_microbatches``, the teacher, targets, student forward and
@@ -154,16 +141,13 @@ def make_train_launch(optimizer: ScheduledAdamW, seed: int = 0,
             raise ValueError("with optim.accum_steps > 1, pass one plan per microbatch")
         if len(plans) != accum_steps:
             raise ValueError(f"{len(plans)} plans for {accum_steps} microbatches")
-        bb = meta.student["backbone"]
         temp = float(scalars["teacher_temp"])
         meta.student.zero_grad(set_to_none=True)
         terms, centers = [], []
         for j, (mb, p) in enumerate(zip(micro, plans)):
             if p is None:
-                p = packed_pass_plan(
-                    step_generator(seed, state.step, None if accum_steps == 1 else j),
-                    bb.n_blocks, packed_layout(meta.cfg, mb).rows_total,
-                    bb.drop_path_rate, bb.drop_path_mode)
+                p = meta.draw_plan(seed, state.step, mb,
+                                   None if accum_steps == 1 else j)
             total, loss_dict, new_centers = meta(
                 mb, teacher_temp=temp, iteration=state.step,
                 plan=plan_to_device(p, device), state=state.center_state)

@@ -1,4 +1,5 @@
-"""Parameter counts and loss recording/comparison (``dinov3_tpu/utils.py``).
+"""Parameter counts, loss recording/comparison and the weight dump
+(``dinov3_tpu/utils.py``).
 
 Loss files are JSON lines, ``{"iteration": i, "<metric>": v, ...}``, the
 JAX package's format: a file recorded by either package is read by the
@@ -11,6 +12,7 @@ import json
 import logging
 from typing import Mapping
 
+import numpy as np
 import torch
 
 from dinov3_tpu_torch.logging_utils import LOGGER_NAME
@@ -29,6 +31,19 @@ def count_parameters(module: torch.nn.Module) -> dict:
 def format_parameter_counts(counts: dict) -> str:
     width = max(len(k) for k in counts)
     return "\n".join(f"{k:<{width}}  {v / 1e6:10.2f} M" for k, v in counts.items())
+
+
+def dump_weights(path: str, module: torch.nn.Module) -> dict:
+    """Flat ``.npz`` of ``module``'s parameters and buffers for offline
+    inspection or cross-framework diffing, keys the ``state_dict`` names
+    with "/" for "." (``student/backbone/blocks/0/attn/qkv/weight``),
+    values fp32 numpy. Returns {"path", "arrays", "bytes"}."""
+    flat = {name.replace(".", "/"): t.detach().float().cpu().numpy()
+            for name, t in module.state_dict().items()}
+    np.savez(path, **flat)
+    nbytes = sum(a.nbytes for a in flat.values())
+    logger.info("dumped %d arrays (%d bytes) to %s", len(flat), nbytes, path)
+    return {"path": str(path), "arrays": len(flat), "bytes": nbytes}
 
 
 class LossRecorder:

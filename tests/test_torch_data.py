@@ -236,19 +236,21 @@ def test_background_iterator_hands_over_errors_and_ends():
 
 
 def test_only_the_folder_dataset_is_ported():
-    """The trainer's pipeline reads image folders only (ImageNet serves the
-    evals); the datasets the port lacks are refused by name."""
+    """The trainer's pipeline takes every ported dataset string (a missing
+    tree is a missing file, not a refusal); the datasets the port lacks
+    are refused by name."""
     from dinov3_tpu_torch.data.loaders import make_dataset
     from dinov3_tpu_torch.data.pipeline import make_train_pipeline
 
-    _, tcfg = cfgs(["data.root=/nowhere", "train.dataset_path=ImageNet:split=TRAIN"])
-    with pytest.raises(NotImplementedError, match="ROADMAP M5"):
-        make_train_pipeline(tcfg, B)
-    for name in ("ImageNet22k", "WebShards", "ADE20K"):
-        with pytest.raises(NotImplementedError, match="ROADMAP M5"):
+    for name in ("ImageNet:split=TRAIN", "ImageNet22k", "WebShards:split=TRAIN"):
+        _, tcfg = cfgs(["data.root=/nowhere", f"train.dataset_path={name}"])
+        with pytest.raises(FileNotFoundError):
+            make_train_pipeline(tcfg, B)
+        with pytest.raises(FileNotFoundError):
+            len(make_dataset(f"{name}:root=/nowhere"))
+    for name in ("ADE20K", "CocoCaptions"):
+        with pytest.raises(NotImplementedError, match="ROADMAP M12"):
             make_dataset(f"{name}:split=TRAIN:root=/nowhere")
-    with pytest.raises(FileNotFoundError):
-        len(make_dataset("ImageNet:split=TRAIN:root=/nowhere"))
 
 
 def test_folder_run_resumes_its_data_stream(numpy_paths, textures, tmp_path):

@@ -274,8 +274,8 @@ def test_make_dataset_reads_int_kwargs_and_names_what_waits():
 
     ds = make_dataset("Synthetic:split=VAL:size=7:image_size=9:n_classes=3", seed=1)
     assert (len(ds), ds.image_size, ds.n_classes, ds.seed) == (7, 9, 3, 5)
-    with pytest.raises(NotImplementedError, match="ROADMAP M5"):
-        make_dataset("ImageNet22k:root=/nowhere")
+    with pytest.raises(NotImplementedError, match="ROADMAP M12"):
+        make_dataset("ADE20K:root=/nowhere")
     with pytest.raises(ValueError, match="unknown dataset"):
         make_dataset("Nope:size=3")
 

@@ -377,6 +377,9 @@ def test_dkv_walked_share_at_training_seg():
     (96, torch.bfloat16, (0, 16), 1),        # 12 vectors: one a lane
     (1000, torch.bfloat16, (0, 16), 4),      # 125 vectors
     (1024, torch.bfloat16, (0, 16), 4),      # the ViT-L width
+    (1536, torch.bfloat16, (0, 16), 8),      # the ViT-g width: 192 vectors
+    (1536, torch.float32, (0, 16), 16),
+    (1536, torch.bfloat16, (0, 16, 32), 8),  # K5 at the ViT-g width
     (1024, torch.float32, (0, 16), 8),
     (2048, torch.bfloat16, (0, 16), 8),      # the register cap
     (2048, torch.float32, (0, 16), 16),

@@ -130,7 +130,7 @@ def test_mlp_matches_jax():
         tm(torch.from_numpy(x)).detach().numpy(),
         np.asarray(jm.apply({"params": params}, jnp.asarray(x))), atol=1e-5)
     with pytest.raises(NotImplementedError, match="not ported"):
-        make_ffn_layer("swiglu", D, 2 * D)
+        make_ffn_layer("moe", D, 2 * D)
 
 
 @pytest.mark.parametrize("with_seg,mask_k_bias", [(False, False), (True, True)])
@@ -242,7 +242,7 @@ def test_build_backbone_is_seeded_and_refuses_what_is_not_ported():
     assert a.dtype == torch.bfloat16           # compute_dtype bf16
     for bad, err in (("student.arch=convnext_tiny", NotImplementedError),
                      ("student.arch=vit_nope", ValueError),
-                     ("student.ffn_layer=swiglu", NotImplementedError)):
+                     ("student.ffn_layer=moe", NotImplementedError)):
         cfg2 = get_default_config()
         apply_dot_overrides(cfg2, ["student.arch=vit_test", bad])
         with pytest.raises(err):

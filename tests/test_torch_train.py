@@ -169,7 +169,7 @@ def test_port_plan_builder_shapes_sorted_unique_in_range(rows, rate):
 
 def test_port_plan_matches_the_jax_plan_structure(world):
     from dinov3_tpu_torch.rng import packed_pass_plan, step_generator
-    from dinov3_tpu_torch.train.train_step import packed_layout
+    from dinov3_tpu_torch.ops.packing import packed_layout
 
     jplan = _jax_plan(world["jmeta"], world["jbatch"], 0)
     rows = packed_layout(world["tcfg"], world["batch"]).rows_total
@@ -519,11 +519,10 @@ def test_build_train_setup_runs_a_step_and_refuses_the_cuts(world):
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="cuda"):
             build_train_setup(tcfg, batch)  # the default device is the card
-    for bad, err in (("model.crop_packing=false", NotImplementedError),
-                     ("gram.use_loss=true", NotImplementedError),
-                     ("student.pos_embed_rope_jitter_coords=1.1",
-                      NotImplementedError),
-                     ("crops.local_crops_size=16", ValueError)):
+    for bad, err in (("gram.use_loss=true", NotImplementedError),
+                     ("parallel.fsdp=2", NotImplementedError),
+                     ("model.crop_packing=sometimes", ValueError),
+                     ("optim.accum_steps=3", ValueError)):
         cfg = get_default_config()
         apply_dot_overrides(cfg, SMOL + [bad])
         with pytest.raises(err):

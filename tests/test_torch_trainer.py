@@ -18,6 +18,7 @@ Tolerances:
 - ``--ref-losses``: the comparator's own 1e-4 + 1e-3 relative.
 """
 
+import contextlib
 import gc
 import json
 import logging
@@ -49,6 +50,10 @@ B = 4
 CLI = ["MODEL.DEVICE=cpu", *SMOL, f"train.batch_size_per_device={B}",
        "checkpointing.period=2"]
 CLI_TIMEOUT = 300
+# the intra-op thread count of the CLI's child processes: CPU reductions
+# split their work by it, so losses agree bitwise only between runs made
+# with the same count
+CLI_THREADS = 2
 
 
 @pytest.fixture(autouse=True)
@@ -88,13 +93,26 @@ def run_cli(out_dir, *args, expect_rc=0, extra=()) -> dict:
     """``python -m dinov3_tpu_torch.train.train`` in a child process (the
     ``CLI`` overrides, then ``extra``); its result is the last line of its
     output."""
-    env = dict(os.environ, OMP_NUM_THREADS="2")
+    env = dict(os.environ, OMP_NUM_THREADS=str(CLI_THREADS))
     proc = subprocess.run(
         [sys.executable, "-m", "dinov3_tpu_torch.train.train",
          "--output-dir", str(out_dir), *map(str, args), *CLI, *extra],
         cwd=REPO, capture_output=True, text=True, timeout=CLI_TIMEOUT, env=env)
     assert proc.returncode == expect_rc, proc.stdout[-4000:] + proc.stderr[-4000:]
     return json.loads(proc.stdout.strip().splitlines()[-1])
+
+
+@contextlib.contextmanager
+def cli_threads():
+    """Run this process's CPU ops with ``run_cli``'s thread count, then
+    restore the count: an in-process run compared against a child's
+    recorded losses reduces in the same order."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(CLI_THREADS)
+    try:
+        yield
+    finally:
+        torch.set_num_threads(n)
 
 
 def port_cfg(out_dir, extra=()):
@@ -381,12 +399,14 @@ def test_ref_losses_compare_against_a_file_the_jax_recorder_wrote(uninterrupted,
         for i, r in rows.items():
             rec.record(i, {**r, "total_loss": r["total_loss"] + (bump if i == 2 else 0.0)})
         rec.close()
-    same = T.do_train(port_cfg(tmp_path / "s"), port_args(
-        "--max-iterations", 4, "--ref-losses", tmp_path / "same.jsonl"))
+    # the file was recorded by a child process: compare at its thread count
+    with cli_threads():
+        same = T.do_train(port_cfg(tmp_path / "s"), port_args(
+            "--max-iterations", 4, "--ref-losses", tmp_path / "same.jsonl"))
+        bumped = T.do_train(port_cfg(tmp_path / "b"), port_args(
+            "--max-iterations", 4, "--ref-losses", tmp_path / "bumped.jsonl"))
     assert same["loss_divergences"] == 0
     assert same["loss_comparison"].startswith("compared 4 iterations, 0 diverged")
-    bumped = T.do_train(port_cfg(tmp_path / "b"), port_args(
-        "--max-iterations", 4, "--ref-losses", tmp_path / "bumped.jsonl"))
     assert bumped["loss_divergences"] == 1 and "at iter 2" in bumped["loss_comparison"]
 
 
@@ -394,12 +414,13 @@ def test_ref_losses_compare_against_a_file_the_jax_recorder_wrote(uninterrupted,
     (["--tensorboard"], [], "M11"),
     (["--profile-steps", "1,2"], [], "M11"),
     (["--debug-nans"], [], "M11"),
-    (["--dump-weights", "w.npz"], [], "M5"),
     (["--resume-topology", "memory"], [], "M12"),
     ([], ["multidistillation.enabled=true"], "M10"),
     ([], ["hrft.enabled=true"], "M10"),
     ([], ["gram.ckpt=/nowhere"], "M12"),
-    ([], ["crops.global_crops_size=[16,32]", "crops.local_crops_size=[8,8]"], "M4"),
+    ([], ["crops.global_crops_size=[16,32]", "crops.local_crops_size=[8,8]",
+          "crops.gram_teacher_crops_size=[16,32]"], "M12"),
+    ([], ["parallel.fsdp=8"], "M7"),
 ])
 def test_trainer_refuses_what_waits_by_name(tmp_path, argv, extra, where):
     import dinov3_tpu_torch.train.train as T
@@ -408,6 +429,45 @@ def test_trainer_refuses_what_waits_by_name(tmp_path, argv, extra, where):
         T.do_train(port_cfg(tmp_path, extra),
                    port_args("--max-iterations", 4, *argv))
     assert not (tmp_path / "ckpt").exists()
+
+
+def test_dump_weights_writes_the_final_student_and_teacher(tmp_path):
+    """``--dump-weights``: a flat ``.npz`` of the meta-arch's state after
+    the last iteration, equal to the checkpoint the run saved there."""
+    import dinov3_tpu_torch.train.train as T
+
+    result = T.do_train(port_cfg(tmp_path), port_args(
+        "--max-iterations", 2, "--dump-weights", tmp_path / "w.npz"))
+    dumped = np.load(tmp_path / "w.npz")
+    saved = load_ckpt(tmp_path, 2)
+    want = {f"{role}/{n}".replace(".", "/"): t for role in ("student", "teacher")
+            for n, t in saved[role].items()}
+    assert set(dumped.files) == set(want) and result["dump_weights"]["arrays"] == len(want)
+    for k, t in want.items():
+        np.testing.assert_array_equal(dumped[k], t.float().numpy(), err_msg=k)
+
+
+def test_crop_size_lists_run_and_resume_bitwise(tmp_path):
+    """Two (global, local) crop-size pairs, each batch drawn from one by the
+    seeded combiner: 5 iterations against 2 then a resume to 5, the same
+    losses bit for bit; the choice stream gives both resolutions."""
+    import dinov3_tpu_torch.train.train as T
+    from dinov3_tpu_torch.data import split_advance
+
+    lists = ["crops.global_crops_size=[16,24]", "crops.local_crops_size=[8,8]"]
+    assert all(split_advance(0, [1.0, 1.0], 5) > 0)
+
+    def run(out, iters):
+        return T.do_train(port_cfg(out, lists), port_args(
+            "--max-iterations", iters, "--record-losses", out / f"{iters}.jsonl"))
+
+    whole = run(tmp_path / "a", 5)
+    assert run(tmp_path / "r", 2)["iterations"] == 2
+    resumed = run(tmp_path / "r", 5)
+    assert whole["start_iteration"] == 0 and resumed["start_iteration"] == 2
+    want, got = read_losses(tmp_path / "a" / "5.jsonl"), read_losses(tmp_path / "r" / "5.jsonl")
+    assert sorted(got) == [2, 3, 4] and all(got[i] == want[i] for i in got)
+    assert all(math.isfinite(v) for row in want.values() for v in row.values())
 
 
 def test_trainer_runs_on_the_card_unless_model_device_is_cpu(tmp_path):
