@@ -101,7 +101,30 @@ K. the ViT-g/14 web-shard recipe (``configs/train/vitg14_webshards.yaml``:
    with ``rng.plan=false``, a crop-size list's second entry, and
    ``--dump-weights`` through the CLI (K2); a SwiGLU ViT-g state_dict in
    Meta's names (2 blocks) served from its file by the packed engine on
-   the card against the CPU (K3).
+   the card against the CPU (K3). K1's CLI run takes 11 iterations: 3-5
+   under ``--profile-steps`` (L1, below), 7-10 timed by ``--benchmark``.
+L. the trainer's telemetry and the fp8 / int8 arms: the step anatomy of
+   K1's profiled ViT-g iterations from the ``anatomy.json`` the trainer
+   wrote (per step: device ms by category, busy, wall, idle share,
+   backward; the top 10 kernels; held against the trace: each step's
+   categories summing to the union of its device intervals within 1 %,
+   the steps holding the trace's device time with under 1 % outside
+   them, every step's K1-K5 kernel events = the pins) (L1); the
+   ViT-L/16 recipe as written in bf16, fp8 and int8
+   (``train.low_precision.arm``), 5 timed steps each with launches pinned,
+   every loss finite, the peak and the drift probe against
+   ``divergence_tol``, and a profiled window of 2 steps for bf16 and fp8,
+   held as L1's (L2);
+   ``lowp_matmul``'s GEMMs at the recipe's ``qkv`` and ``fc2`` shapes
+   against their plain versions (int8 bitwise, fp8 within 2^-10 of the
+   absolute product sum; dx, dw within the bf16 bound), the student's
+   gradients of a 2-block fp8 and int8 forward on the card against a
+   float64 straight-through reference within 2^-7, two planted wrong
+   backwards outside it, and a 2-block fp8 and int8 step card against
+   CPU (L3); the CLI at 4 blocks over 8
+   iterations with ``telemetry.flush_every=4`` under ``--debug-nans`` and
+   ``--tensorboard`` (every loss recorded, 2 metrics fetches), and a NaN
+   planted in a block's GELU, which ``--debug-nans`` names (L4).
 
 Prints each phase's seconds, the kernel table as one JSON line, the card's name and power
 limit, and as its last line ``{"ok": true, "device": {...}}``. Any
@@ -111,6 +134,7 @@ before doing anything.
 
 from __future__ import annotations
 
+import contextlib
 import copy
 import gc
 import itertools
@@ -1299,13 +1323,17 @@ def phase_f() -> None:
 
 
 def card_vs_cpu_step(label: str, overrides: list, config: str | None = None,
-                     batch: dict | None = None) -> None:
+                     batch: dict | None = None, moved_close: float = 0.9,
+                     planted: str | None = None) -> None:
     """The phase-F pattern under ``config`` (the ViT-L/16 recipe when None)
     and ``overrides``: a 2-block model at the config's width (4096 prototypes, B=4, LayerScale 1) takes
     one step on the card and one on the CPU from the same weights, batch
     (``batch``, else a synthetic one) and plans (drawn on the host by the
     meta-arch, one a microbatch under ``optim.accum_steps``); loss terms,
-    gradient norms and the updated student compared."""
+    gradient norms and the updated student compared (``moved_close``: the
+    share of moved entries within a tenth of their step). ``planted``
+    (``planted_backward``) runs the card's step once more under that
+    wrong backward and prints its share, which is not held."""
     import torch
 
     from dinov3_tpu_torch.configs import load_config
@@ -1325,8 +1353,9 @@ def card_vs_cpu_step(label: str, overrides: list, config: str | None = None,
     accum = int(cfg.optim.accum_steps)
     plans = None
     results = {}
-    for dev in ("cuda", "cpu"):
-        setup = build_train_setup(cfg, batch, device=dev, seed=2, n_blocks=2)
+    for dev in ("cuda", "cpu") + (("planted",) if planted else ()):
+        setup = build_train_setup(cfg, batch, device="cuda" if dev == "planted" else dev,
+                                  seed=2, n_blocks=2)
         if plans is None:  # drawn once on the host: both devices take these
             plans = [setup.meta.draw_plan(0, it, mb, None if accum == 1 else j)
                      for j, mb in enumerate(split_microbatches(batch, accum))]
@@ -1336,8 +1365,9 @@ def card_vs_cpu_step(label: str, overrides: list, config: str | None = None,
         before = {n: p.detach().cpu().clone()
                   for n, p in setup.meta.student.named_parameters()}
         t0 = time.perf_counter()
-        state, m = setup.step_fn(state, batch, setup.scalars(it),
-                                 plan=plans if accum > 1 else plans[0])
+        with planted_backward(planted) if dev == "planted" else contextlib.nullcontext():
+            state, m = setup.step_fn(state, batch, setup.scalars(it),
+                                     plan=plans if accum > 1 else plans[0])
         print(f"[{label}] one step on {dev}: {(time.perf_counter() - t0) * 1e3:.1f} ms; "
               + ", ".join(f"{k} {m[k]:.4f}" for k in LOSS_KEYS))
         after = {n: p.detach().cpu() for n, p in setup.meta.student.named_parameters()}
@@ -1361,19 +1391,29 @@ def card_vs_cpu_step(label: str, overrides: list, config: str | None = None,
     # every entry lies within twice its leaf's largest CPU step of the
     # CPU's, and 90 % of the moved entries within a tenth of their step
     lr = float(setup.schedules.lr[it])
-    close = total = 0
-    for n in before:
-        d_c, d_p = after_c[n] - before[n], after_p[n] - before[n]
-        err = (d_c - d_p).abs()
-        step = d_p.abs().max().item()
-        check(err.max().item() <= 2 * step + 1e-6,
-              f"[{label}] {n}: update differs by {err.max().item():.3e} > 2 x {step:.3e}")
-        moved = d_p.abs() > 0.1 * step
-        close += int((err[moved] <= 0.1 * d_p.abs()[moved]).sum())
-        total += int(moved.sum())
-    print(f"[{label}] updated student: {close / total:.4f} of the moved entries within "
-          f"a tenth of their step (lr {lr:.3e})")
-    check(close >= 0.9 * total, f"[{label}] updated students disagree")
+
+    def moved_share(after_c: dict, hold: bool) -> float:
+        close = total = 0
+        for n in before:
+            d_c, d_p = after_c[n] - before[n], after_p[n] - before[n]
+            err = (d_c - d_p).abs()
+            step = d_p.abs().max().item()
+            if hold:
+                check(err.max().item() <= 2 * step + 1e-6,
+                      f"[{label}] {n}: update differs by {err.max().item():.3e} > 2 x {step:.3e}")
+            moved = d_p.abs() > 0.1 * step
+            close += int((err[moved] <= 0.1 * d_p.abs()[moved]).sum())
+            total += int(moved.sum())
+        return close / total
+
+    share = moved_share(after_c, True)
+    print(f"[{label}] updated student: {share:.4f} of the moved entries within "
+          f"a tenth of their step (lr {lr:.3e}; tol {moved_close})")
+    check(share >= moved_close, f"[{label}] updated students disagree")
+    if planted:
+        print(f"[{label}] the card's step under the planted {planted} backward: "
+              f"{moved_share(results['planted'][2], False):.4f} of the moved entries "
+              f"within a tenth of their step (not held)")
 
 
 # ---------------------------------------------------------------- phase G
@@ -1601,13 +1641,14 @@ H_LOSS_RTOL = 1e-4
 
 
 def recipe_arm(label: str, extra: list, steps: int, launches: dict | None,
-               profile: bool = False) -> dict:
+               profile: bool = False, window: bool = False) -> dict:
     """The recipe at full width and depth under ``extra``, through
     ``build_train_setup`` + ``step_fn``: step 0 as the warm-up (its loss
     terms kept for the comparisons), then ``steps`` timed steps with every
     loss finite and, where ``launches`` is given, K1-K5 launches pinned
     per step. Returns the step-0 losses, the times, the peak memory and
-    the launches; optionally one profiled step and the step's host waits."""
+    the launches; optionally one profiled step and the step's host waits,
+    or (``window``) a 2-step profiled window read by the step anatomy."""
     import torch
 
     from dinov3_tpu_torch.configs import load_config
@@ -1645,7 +1686,8 @@ def recipe_arm(label: str, extra: list, steps: int, launches: dict | None,
     peak = torch.cuda.max_memory_allocated() / 2 ** 30
     out = {"m0": m0, "last": m, "median_ms": float(np.median(times)),
            "mean_ms": float(np.mean(times)), "peak_gib": peak, "launches": counts,
-           "per_step": per_step, "B": B, "state": state}
+           "per_step": per_step, "B": B, "state": state, "drift": setup.lowp_drift,
+           "divergence_tol": setup.lowp["divergence_tol"]}
     print(f"[{label}] {steps} steps: median {out['median_ms']:.1f} ms, mean "
           f"{out['mean_ms']:.1f} ms ({', '.join(f'{t:.1f}' for t in times)}), "
           f"{B / out['median_ms'] * 1e3:.2f} img/s at the median, peak {peak:.2f} GiB; "
@@ -1656,6 +1698,10 @@ def recipe_arm(label: str, extra: list, steps: int, launches: dict | None,
     if profile:
         sync_points(setup, state, dbatch, label)
         out["profile"] = profile_step(setup, state, batch, label)
+    if window:
+        out["window"] = profiled_window(label, setup, state, dbatch, launches)
+        check(out["window"]["kernel_events"] == {k: 2 * v for k, v in launches.items()},
+              f"[{label}] window K1-K5 events {out['window']['kernel_events']}")
     del setup, state, dbatch
     out.pop("state")
     gc.collect()
@@ -2567,6 +2613,9 @@ VITG_N, VITG_N_LOCAL, VITG_H, VITG_D = 261, 54, 24, 1536
 # final norm), 82 student (and the local-CLS norm), 80 recomputed; K5 once
 # a student K4 launch; K2, K3 once a student block
 VITG_LAUNCHES = {"K1": 120, "K2": 40, "K3": 40, "K4": 243, "K5": 82}
+# the CLI run of K1: iterations 3-5 profiled (phase L1), the last 4 timed
+# (--benchmark, after the profiler's window)
+VITG_ITERS, VITG_PROFILE = 11, (3, 5)
 # the one-card overrides of the recipe: no FSDP mesh (the port trains on
 # one card; parallel.fsdp > 1 is refused, ROADMAP M7)
 VITG_OVERRIDES = ["parallel.fsdp=1"]
@@ -2725,39 +2774,43 @@ def write_web_shards(root: str, n_images: int = 320, per_shard: int = 64,
 
 def phase_k1() -> dict:
     """The ViT-g/14 recipe through the trainer CLI at full width and depth
-    from web shards written here: 6 iterations at B=16 (the last 4 timed,
-    one save at the end), then a new process resuming from that save for a
-    7th; launches pinned a step, losses finite."""
+    from web shards written here: 11 iterations at B=16 (3-5 profiled, the
+    step anatomy of phase L1; 7-10 timed, after the profiler's window; one
+    save at the end), then a new process resuming from that save for a
+    12th; launches pinned a step, losses finite."""
     t0 = time.perf_counter()
     shards = os.path.join(K_DIR, "shards")
     nbytes = write_web_shards(shards)
     print(f"[K] K1: 320 JPEGs of 256 px in 5 web shards ({nbytes} bytes) written "
           f"in {time.perf_counter() - t0:.1f} s; disk free "
           f"{shutil.disk_usage(K_DIR).free / 2 ** 30:.1f} GiB")
-    base = VITG_OVERRIDES + [f"data.root={shards}", "checkpointing.period=6"]
+    base = VITG_OVERRIDES + [f"data.root={shards}", f"checkpointing.period={VITG_ITERS}"]
     run = os.path.join(K_DIR, "run")
     losses = os.path.join(K_DIR, "a.jsonl")
-    a = run_cli("vitg14 recipe", ["--output-dir", run, "--max-iterations", "6",
-                                     "--benchmark", "4", "--record-losses", losses],
+    a = run_cli("vitg14 recipe", ["--output-dir", run, "--max-iterations", str(VITG_ITERS),
+                                  "--benchmark", "4", "--record-losses", losses,
+                                  "--profile-steps", ",".join(map(str, VITG_PROFILE))],
                 base=base, label="K", log_dir=K_DIR, config=VITG_CONFIG, timeout=600)
-    check(a["launches"] == {k: v * 6 for k, v in VITG_LAUNCHES.items()},
-          f"[K] launches {a['launches']} != 6 x {VITG_LAUNCHES}")
+    check(a["launches"] == {k: v * VITG_ITERS for k, v in VITG_LAUNCHES.items()},
+          f"[K] launches {a['launches']} != {VITG_ITERS} x {VITG_LAUNCHES}")
     check((a["remat"], a["targets"], a["crop_packing"]) == ("blocks", "streaming", True),
           f"[K] resolved {a['remat']}, {a['targets']}, packing {a['crop_packing']}")
-    check([s["step"] for s in a["saves"]] == [6], f"[K] saves {a['saves']}")
+    check([s["step"] for s in a["saves"]] == [VITG_ITERS], f"[K] saves {a['saves']}")
     rec = read_losses(losses)
-    check(sorted(rec) == list(range(6)) and all(
+    check(sorted(rec) == list(range(VITG_ITERS)) and all(
         np.isfinite(v) for r in rec.values() for v in r.values()), f"[K] losses {rec}")
-    b = run_cli("vitg14 recipe resumed", ["--output-dir", run, "--max-iterations", "7"],
+    a["l1"] = phase_l1(run, a)
+    b = run_cli("vitg14 recipe resumed", ["--output-dir", run,
+                                          "--max-iterations", str(VITG_ITERS + 1)],
                 base=base, label="K", log_dir=K_DIR, config=VITG_CONFIG, timeout=600)
-    check(b["start_iteration"] == 6 and b["iterations"] == 7
+    check(b["start_iteration"] == VITG_ITERS and b["iterations"] == VITG_ITERS + 1
           and np.isfinite(b["final_loss"]), f"[K] resume {b}")
     check(b["launches"] == VITG_LAUNCHES, f"[K] resumed launches {b['launches']}")
     print(f"[K] K1 ViT-g/14 at B={VITG_B}: {a['ms_per_step']:.1f} ms a step, "
           f"{a['img_per_sec']:.2f} img/s, peak {a['peak_memory_gib']:.2f} GiB; save "
           f"{a['saves'][0]['bytes']} bytes in {a['saves'][0]['seconds']:.1f} s, restore "
-          f"{b['restore_s']:.1f} s; losses at iteration 5: "
-          + ", ".join(f"{k} {rec[5][k]:.4f}" for k in LOSS_KEYS))
+          f"{b['restore_s']:.1f} s; losses at iteration {VITG_ITERS - 1}: "
+          + ", ".join(f"{k} {rec[VITG_ITERS - 1][k]:.4f}" for k in LOSS_KEYS))
     shutil.rmtree(run)
     return {**a, "resumed": b}
 
@@ -2880,6 +2933,499 @@ def phase_k3() -> None:
 
 # ---------------------------------------------------------------- main
 
+# ---------------------------------------------------------------- phase L
+
+L_DIR = os.path.join(REPO, "build", "phase_l")
+# a kernel event of each wrapper call (K1's tile schedule and K5's column
+# pass are second kernels of one call, not counted)
+KERNEL_EVENTS = {
+    "K1": re.compile(r"flash_fwd_(?:wgmma|bf16|f32)\b"),
+    "K2": re.compile(r"flash_bwd_dq_(?:wgmma|bf16|f32)\b"),
+    "K3": re.compile(r"flash_bwd_dkv_(?:wgmma|bf16|f32)\b"),
+    "K4": re.compile(r"layernorm_fwd(?:_vec)?\b"),
+    "K5": re.compile(r"layernorm_bwd_(?:vec|rows)\b"),
+}
+
+
+def anatomy_lines(label: str, ledger: dict, trace, pins: dict, top: int = 10) -> dict:
+    """Print a ledger's steps (device ms by category, busy, wall, idle
+    share, backward, named scopes) and the top kernels by device ms, and
+    hold the ledger against the trace it was read from:
+    - each step's categories sum, within 1 %, to the union of the step's
+      device intervals taken from the trace (an event counted twice, or
+      kernels that overlap, break it);
+    - the ledger's steps plus its unwindowed time hold all the trace's
+      device time within 1 %, and the unwindowed time is under 1 % of it
+      (an event the ledger lost, or a launch outside every step);
+    - every step's K1-K5 kernel events equal ``pins`` (a step that
+      Kineto cut short, or a launch given to the wrong step)."""
+    from dinov3_tpu_torch.telemetry import events_by_step
+    from dinov3_tpu_torch.telemetry.anatomy import merge_intervals
+
+    by_step = events_by_step(trace)
+    total = sum(e.dur for e in trace.op_events()) / 1e3
+    busy_sum = sum(st["device_busy_ms"] for st in ledger["steps"])
+    check(abs(busy_sum + ledger["unwindowed_ms"] - total) <= 0.01 * total
+          and ledger["unwindowed_ms"] <= 0.01 * total,
+          f"[{label}] steps {busy_sum} + unwindowed {ledger['unwindowed_ms']} ms "
+          f"vs the trace's {total} ms of device time")
+    rows = []
+    events = {k: 0 for k in KERNEL_EVENTS}
+    for st in ledger["steps"]:
+        it = st["iteration"]
+        busy, wall = st["device_busy_ms"], st["wall_ms"]
+        cats = sum(st["device_ms"].values())
+        occupied = sum(e - s for s, e in merge_intervals(
+            [(ev.ts, ev.end) for ev in by_step.get(it, [])])) / 1e3
+        check(abs(cats - occupied) <= 0.01 * occupied,
+              f"[{label}] step {it}: categories {cats} vs the union of its device "
+              f"intervals {occupied} (busy {busy})")
+        got = {k: sum(bool(rx.search(e.name)) for e in by_step.get(it, []))
+               for k, rx in KERNEL_EVENTS.items()}
+        check(got == pins, f"[{label}] step {it}: K1-K5 events {got} != {pins}")
+        for k in events:
+            events[k] += got[k]
+        rows.append({"busy": busy, "wall": wall, "backward": st["backward_ms"],
+                     **st["device_ms"]})
+        print(f"[{label}] step {it}: device busy {busy:.2f} ms (union {occupied:.2f}), "
+              f"wall {wall:.2f} ms, idle share {max(0.0, 1 - busy / wall):.4f}, backward "
+              f"{st['backward_ms']:.2f} ms; " + ", ".join(
+                  f"{c} {v:.2f}" for c, v in sorted(st["device_ms"].items(), key=lambda r: -r[1]))
+              + "; scopes " + ", ".join(f"{k} {v:.3f}" for k, v in st.get("scopes", {}).items()))
+    by_name: dict = {}
+    for e in (e for st in ledger["steps"] for e in by_step.get(st["iteration"], [])):
+        n, t = by_name.get(e.name, (0, 0.0))
+        by_name[e.name] = (n + 1, t + e.dur / 1e3)
+    n = max(1, len(rows))
+    for name, (cnt, t) in sorted(by_name.items(), key=lambda r: -r[1][1])[:top]:
+        print(f"[{label}]   {t / n:8.3f} ms a step  x{cnt / n:<7.1f} {name[:110]}")
+    print(f"[{label}] the trace's device time {total:.2f} ms = steps {busy_sum:.2f} + "
+          f"unwindowed {ledger['unwindowed_ms']:.3f} ms")
+    keys = sorted({k for r in rows for k in r})
+    return {"per_step": {k: sum(r.get(k, 0.0) for r in rows) / n for k in keys},
+            "kernel_events": events, "n_steps": len(rows)}
+
+
+def phase_l1(run_dir: str, result: dict) -> dict:
+    """The ViT-g/14 recipe's step anatomy from phase K1's CLI run: the
+    ledger the trainer wrote (``<run>/trace/anatomy.json``) and its trace,
+    per step; K1-K5 kernel events in the window against the pins; the
+    host's dispatch and data-wait spans a step from the run's span
+    stream."""
+    from dinov3_tpu_torch.telemetry import (
+        find_trace_file,
+        fleet_report,
+        load_span_streams,
+        load_trace,
+    )
+
+    t0 = time.perf_counter()
+    with open(os.path.join(run_dir, "trace", "anatomy.json")) as f:
+        ledger = json.load(f)
+    trace = load_trace(find_trace_file(os.path.join(run_dir, "trace")))
+    check([st["iteration"] for st in ledger["steps"]] == list(range(VITG_PROFILE[0],
+                                                                   VITG_PROFILE[1] + 1)),
+          f"[L1] ledger steps {[st.get('iteration') for st in ledger['steps']]}")
+    steps = VITG_PROFILE[1] - VITG_PROFILE[0] + 1
+    out = anatomy_lines("L1", ledger, trace, VITG_LAUNCHES)
+    want = {k: v * steps for k, v in VITG_LAUNCHES.items()}
+    check(out["kernel_events"] == want,
+          f"[L1] K1-K5 events in the window {out['kernel_events']} != {want}")
+    streams = load_span_streams(run_dir)["rank0"]
+    host = {name: [r["dur_ms"] for r in streams if r.get("name") == name
+                   and (r.get("iteration") or 0) > 0]
+            for name in ("dispatch", "data_wait", "h2d")}
+    out["host_ms"] = {k: float(np.median(v)) for k, v in host.items() if v}
+    print(f"[L1] the host a step (median of iterations 1-{VITG_ITERS - 1}, spans): "
+          + ", ".join(f"{k} {v:.2f} ms" for k, v in out["host_ms"].items())
+          + f"; fleet verdict {fleet_report({'rank0': streams})['verdict']}")
+    print(f"[L1] the window's {steps} steps: K1-K5 events "
+          f"{out['kernel_events']} (= {steps} x the pins); the trainer's summary ({steps} steps) "
+          f"{result.get('anatomy', {}).get('device_ms_per_step')}; "
+          f"unwindowed {ledger['unwindowed_ms']:.2f} ms; read in {time.perf_counter() - t0:.1f} s")
+    return out
+
+
+def profiled_window(label: str, setup, state, dbatch, pins: dict, steps: int = 2) -> dict:
+    """``steps`` steps of ``setup.step_fn`` under the trainer's profiler
+    window (``SpanTracer``: ``train_step#N`` annotations, after one step
+    under its warm-up), read by the step-anatomy ledger and held against
+    the trace (``anatomy_lines``)."""
+    from dinov3_tpu_torch.telemetry import (
+        SpanTracer,
+        anatomy_ledger,
+        find_trace_file,
+        load_trace,
+    )
+
+    tdir = os.path.join(L_DIR, f"trace_{label.replace(' ', '_')}")
+    shutil.rmtree(tdir, ignore_errors=True)
+    first = state.step
+    # the first iteration runs under the profiler's warm-up (SpanTracer)
+    tracer = SpanTracer(None, profile_steps=(first + 1, first + steps), profile_dir=tdir)
+    for _ in range(steps + 1):
+        it = state.step
+        tracer.profile_step_begin(it)
+        with tracer.step_annotation(it):
+            state, _ = setup.step_fn(state, dbatch, setup.scalars(it))
+        tracer.profile_step_end(it)
+    trace = load_trace(find_trace_file(tdir))
+    out = anatomy_lines(label, anatomy_ledger(trace), trace, pins)
+    shutil.rmtree(tdir, ignore_errors=True)
+    return out
+
+
+def phase_l2() -> dict:
+    """The ViT-L/16 recipe as written (B=64, streaming targets, full depth)
+    in bf16, fp8 and int8 (``train.low_precision.arm``): 5 timed steps
+    each after a warm-up, launches pinned, every loss finite, the drift
+    probe against ``divergence_tol``; a profiled window of 2 steps for
+    bf16 and fp8."""
+    out = {}
+    for arm in ("bf16", "fp8", "int8"):
+        extra = [] if arm == "bf16" else [f"train.low_precision.arm={arm}"]
+        out[arm] = r = recipe_arm(f"L2 {arm}", extra, 5, STEP_LAUNCHES,
+                                  window=arm in ("bf16", "fp8"))
+        drift = r["drift"]
+        print(f"[L2] {arm}: {r['median_ms']:.1f} ms a step, {r['B'] / r['median_ms'] * 1e3:.2f} "
+              f"img/s, peak {r['peak_gib']:.2f} GiB"
+              + ("" if drift is None else f"; drift probe max {drift['max']:.4g} against "
+                 f"divergence_tol {r['divergence_tol']:.4g}"))
+        if drift is not None:
+            check(drift["max"] <= r["divergence_tol"], f"[L2] {arm} drift {drift}")
+    for arm in ("fp8", "int8"):
+        print(f"[L2] {arm} / bf16: step {out[arm]['median_ms'] / out['bf16']['median_ms']:.4f} x, "
+              f"peak {out[arm]['peak_gib'] - out['bf16']['peak_gib']:+.2f} GiB")
+    wb, wf = out["bf16"]["window"]["per_step"], out["fp8"]["window"]["per_step"]
+    for cat in ("matmul/conv", "fusion/elementwise", "norm/reduce", "softmax/exp",
+                "copy/layout", "busy", "wall"):
+        print(f"[L2] {cat:>18}: bf16 {wb.get(cat, 0.0):8.2f} ms, fp8 {wf.get(cat, 0.0):8.2f} ms a step")
+    return out
+
+
+@contextlib.contextmanager
+def planted_backward(kind: str):
+    """A deliberately wrong straight-through backward of ``lowp_matmul``,
+    in this process, while the context is open: ``wide_x`` takes dw from
+    the wide activation instead of its codes, ``wide_w`` takes dx from
+    the wide weight instead of its codes. Phase L3's negative controls:
+    the gradient check must fail on each."""
+    from dinov3_tpu_torch.ops import lowp
+
+    cls = lowp._LowpMatmul
+    fwd, bwd = cls.forward, cls.backward
+
+    def forward(ctx, x, w, scale, arm):
+        out = fwd(ctx, x, w, scale, arm)
+        ctx.wide = (x.detach(), w.detach())
+        return out
+
+    def backward(ctx, g):
+        dx, dw, _, _ = bwd(ctx, g)
+        x, w = ctx.wide
+        if kind == "wide_x":
+            dw = (g.reshape(-1, g.shape[-1]).t()
+                  @ x.reshape(-1, x.shape[-1]).to(g.dtype)).to(dw.dtype)
+        else:
+            dx = (g @ w.to(g.dtype)).to(dx.dtype)
+        return dx, dw, None, None
+
+    cls.forward, cls.backward = staticmethod(forward), staticmethod(backward)
+    try:
+        yield
+    finally:
+        cls.forward, cls.backward = staticmethod(fwd), staticmethod(bwd)
+
+
+@contextlib.contextmanager
+def ste_reference():
+    """``lowp_matmul``'s backward replaced, while the context is open, by
+    its rule written as plain autograd, independent of the port's
+    hand-written backward: the value is the port's own forward (held
+    against the plain version at the op level), the gradient comes from
+    the straight-through identity ``v + (v_hat - v).detach()`` on both
+    operands in float64, each code dequantized in the compute dtype as
+    the rule has it (dx from the weight's codes, dw from the
+    activation's). The forward being the port's, both runs see the same
+    activations and codes; only the backward differs."""
+    import torch
+
+    from dinov3_tpu_torch.ops import lowp
+
+    port = lowp.lowp_matmul
+
+    def ste_matmul(arm, x, w, scale):
+        spec = lowp.qspec(arm)
+        s_w = scale.detach().float()
+        s_x = lowp.current_scale(x.detach(), spec.qmax)
+        x_hat = (lowp.quantize(x.detach(), s_x, spec).float() * s_x).to(x.dtype)
+        w_hat = (lowp.quantize(w.detach(), s_w, spec).float() * s_w).to(w.dtype)
+        xs = x.double() + (x_hat.double() - x.double()).detach()
+        ws = w.double() + (w_hat.double() - w.double()).detach()
+        prod = xs @ ws.t()
+        with torch.no_grad():
+            value = port(arm, x, w, scale)
+        return value + (prod - prod.detach()).to(value.dtype)
+
+    lowp.lowp_matmul = ste_matmul
+    try:
+        yield
+    finally:
+        lowp.lowp_matmul = port
+
+
+# phase L3's gradient check: the student's castable-weight gradients of one
+# 2-block recipe forward at an arm on the card, the port against
+# ``ste_reference``, relative L2 error of the worst leaf. The port rounds
+# its two backward products to bf16 (2^-9 relative an entry) where the
+# reference keeps float64, on the same activations and codes: a sound arm
+# lies within 2^-7; each planted
+# backward moves a product by the quantization error of an operand (the
+# arm's quantum, 2^-4 relative for fp8, 1/254 of the range for int8) and
+# must lie outside
+LOWP_GRAD_TOL = 2.0 ** -7
+
+
+def lowp_grads_on_card(arm: str) -> dict:
+    """The student's gradients of one forward and backward at ``arm`` on a
+    2-block model at the ViT-L/16 recipe's width (the phase-F pattern:
+    same weights, batch, plan and scales), per castable weight (``qkv``,
+    ``proj``, ``fc1``, ``fc2``). Held: the port on the card against
+    ``ste_reference`` on the card within ``LOWP_GRAD_TOL``, and each
+    planted backward (``planted_backward``) outside it. Printed, not held:
+    the arm and the same model in bf16, card against CPU (quantization
+    turns the two devices' bf16 rounding into flipped codes)."""
+    import torch
+
+    from dinov3_tpu_torch.configs import load_config
+    from dinov3_tpu_torch.configs.config import lowp_cfg
+    from dinov3_tpu_torch.data import make_synthetic_batch
+    from dinov3_tpu_torch.ops.lowp import lowp_bound, lowp_scales
+    from dinov3_tpu_torch.rng import plan_to_device
+    from dinov3_tpu_torch.train import build_train_setup, put_batch
+
+    B = 4
+    cfg = load_config(
+        os.path.join(REPO, CLI_CONFIG),
+        [f"train.batch_size_per_device={B}", "student.layerscale=1.0",
+         "dino.head_n_prototypes=4096", "ibot.head_n_prototypes=4096",
+         f"train.low_precision.arm={arm}"], n_devices=1)
+    lp = lowp_cfg(cfg)
+    batch = make_synthetic_batch(cfg, B, seed=1)
+    it = cfg.optim.warmup_epochs * cfg.train.OFFICIAL_EPOCH_LENGTH
+    plan, grads, seconds = None, {}, {}
+    for dev in ("cuda", "cpu"):
+        t0 = time.perf_counter()
+        setup = build_train_setup(cfg, batch, device=dev, seed=2, n_blocks=2)
+        seconds[f"{dev} setup"] = time.perf_counter() - t0
+        meta, state = setup.meta, setup.state
+        if plan is None:
+            plan = meta.draw_plan(0, it, batch)
+        scales = {k: lowp_scales(h, arm, lp["scale_margin"]) for k, h in state.lowp.items()}
+        dbatch, dplan = put_batch(batch, dev), plan_to_device(plan, dev)
+        temp = float(setup.scalars(it)["teacher_temp"])
+        runs = [("arm", True, None), ("bf16", False, None)]
+        if dev == "cuda":
+            runs += [("ste", True, ste_reference), ("wide_x", True, "wide_x"),
+                     ("wide_w", True, "wide_w")]
+        for name, bound, swap in runs:
+            t0 = time.perf_counter()
+            meta.student.zero_grad(set_to_none=True)
+            with contextlib.ExitStack() as stack:
+                if bound:
+                    for k in ("student", "teacher"):
+                        stack.enter_context(lowp_bound(getattr(meta, k)["backbone"],
+                                                       scales[k], arm))
+                if isinstance(swap, str):
+                    stack.enter_context(planted_backward(swap))
+                elif swap is not None:
+                    stack.enter_context(swap())
+                total, _, _ = meta(dbatch, teacher_temp=temp, iteration=it, plan=dplan,
+                                   state=state.center_state)
+                total.backward()
+            grads[dev, name] = {
+                n: meta.student.get_parameter(f"backbone.{n}").grad.detach().float().cpu()
+                for n in scales["student"]}
+            seconds[f"{dev} {name}"] = time.perf_counter() - t0
+        meta.student.zero_grad(set_to_none=True)
+        del setup, meta, state, scales
+        gc.collect()
+        torch.cuda.empty_cache()
+
+    def worst(a: tuple, b: tuple) -> tuple:
+        rel = {n: ((grads[a][n] - g).norm() / g.norm()).item() for n, g in grads[b].items()}
+        n = max(rel, key=rel.get)
+        return rel[n], n
+
+    ref = ("cuda", "ste")
+    out = {"arm": worst(("cuda", "arm"), ref),
+           "wide_x": worst(("cuda", "wide_x"), ref),
+           "wide_w": worst(("cuda", "wide_w"), ref),
+           "card_vs_cpu": worst(("cuda", "arm"), ("cpu", "arm")),
+           "card_vs_cpu_bf16": worst(("cuda", "bf16"), ("cpu", "bf16"))}
+    print(f"[L3 {arm}] student gradients on the card against the float64 straight-through "
+          f"reference, worst castable leaf's relative L2 error: {arm} {out['arm'][0]:.3e} "
+          f"({out['arm'][1]}); planted dw from the wide x {out['wide_x'][0]:.3e}, dx from "
+          f"the wide w {out['wide_w'][0]:.3e} (tol {LOWP_GRAD_TOL:.3e}); card vs CPU, not "
+          f"held: {arm} {out['card_vs_cpu'][0]:.3e}, bf16 {out['card_vs_cpu_bf16'][0]:.3e}; "
+          + ", ".join(f"{k} {v:.1f} s" for k, v in seconds.items()))
+    check(out["arm"][0] <= LOWP_GRAD_TOL, f"[L3 {arm}] gradients {out['arm']}")
+    for name in ("wide_x", "wide_w"):
+        check(out[name][0] > LOWP_GRAD_TOL,
+              f"[L3 {arm}] the planted {name} backward passes the gradient check: {out[name]}")
+    return {k: v[0] for k, v in out.items()}
+
+
+def phase_l3() -> dict:
+    """``lowp_matmul`` on the card against its plain version at the
+    recipe's ``qkv`` and ``fc2`` shapes (the packed student's rows at B=64),
+    the student's gradients of a 2-block fp8 and int8 recipe forward on
+    the card against a float64 straight-through reference, with two
+    planted wrong backwards as negative controls, and
+    a 2-block fp8 and int8 recipe step, card against CPU."""
+    import torch
+
+    from dinov3_tpu_torch.ops.lowp import (
+        codes_matmul,
+        codes_matmul_plain,
+        current_scale,
+        lowp_matmul,
+        qspec,
+        quantize,
+    )
+
+    rows = recipe_packed_rows() * 197
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    for name, k, n in (("qkv", 1024, 3072), ("fc2", 4096, 1024)):
+        x = torch.randn(rows, k, device="cuda", generator=gen).bfloat16()
+        w = (torch.randn(n, k, device="cuda", generator=gen) * 0.02).bfloat16()
+        for arm in ("int8", "fp8"):
+            spec = qspec(arm)
+            s_w = w.float().abs().amax() / spec.qmax
+            q_x, q_w = quantize(x, current_scale(x, spec.qmax), spec), quantize(w, s_w, spec)
+            card = codes_matmul(q_x, q_w, arm)
+            plain = codes_matmul_plain(q_x, q_w, arm)
+            ms = cuda_ms(lambda: codes_matmul(q_x, q_w, arm), 10)
+            plain_ms = cuda_ms(lambda: codes_matmul_plain(q_x, q_w, arm), 3)
+            lib_ms = cuda_ms(lambda: x @ w.t(), 10)
+            if arm == "int8":
+                check(torch.equal(card, plain), f"[L3] int8 {name}: card != plain")
+                err = 0.0
+            else:
+                # Hopper's fp8 MMA keeps ~22 bits between its promotions to
+                # fp32: each output within 2^-10 of its absolute product sum
+                # (K <= 2^12 terms, 2^-22 each)
+                absum = codes_matmul_plain(q_x.float().abs().to(spec.qdtype),
+                                           q_w.float().abs().to(spec.qdtype), arm)
+                err = ((card - plain).abs() / absum.clamp_min(1e-30)).max().item()
+                check(err <= 2.0 ** -10, f"[L3] fp8 {name}: {err:.3e} of the absolute sum")
+            print(f"[L3] {arm} {name} [{rows}, {k}] x [{k}, {n}]: card {ms:.4f} ms "
+                  f"(plain {plain_ms:.4f}, bf16 x @ w.T {lib_ms:.4f}); "
+                  + ("bitwise the plain version" if arm == "int8"
+                     else f"within {err:.3e} of the absolute product sum (tol {2.0 ** -10:.3e})"))
+            # gradients: the straight-through backward against fp32 products
+            # of the same dequantized codes, within the bf16 bound
+            sub = slice(0, 4096)
+            xs = x[sub].clone().requires_grad_()
+            ws = w.clone().requires_grad_()
+            g = torch.randn(4096, n, device="cuda", generator=gen).bfloat16()
+            lowp_matmul(arm, xs, ws, s_w).backward(g)
+            s_x = current_scale(x[sub], spec.qmax)
+            x_hat = quantize(x[sub], s_x, spec).float() * s_x
+            w_hat = q_w.float() * s_w
+            for what, got, want in (("dx", xs.grad, g.float() @ w_hat.bfloat16().float()),
+                                    ("dw", ws.grad, g.float().t() @ x_hat.bfloat16().float())):
+                rel = ((got.float() - want).abs().max() / want.abs().max()).item()
+                check(rel <= 2.0 ** -7, f"[L3] {arm} {name} {what}: {rel:.3e}")
+            print(f"[L3] {arm} {name}: dx, dw within 2^-7 of the fp32 products of the codes")
+            del card, plain
+    # the backward: the student's gradients on the card against the
+    # straight-through reference, and under planted wrong backwards, which
+    # must fail (LOWP_GRAD_TOL)
+    grads = {arm: lowp_grads_on_card(arm) for arm in ("fp8", "int8")}
+    # the updated students: an activation whose card and CPU values (bf16,
+    # summed in other orders) straddle a quantization boundary takes codes
+    # one quantum apart, and its straight-through contribution to dW moves
+    # by that quantum (up to 1/8 of it for fp8's 3 mantissa bits): more of
+    # the small-gradient entries that Adam's sign-like first step amplifies
+    # land apart than in bf16, so 0.8 of the moved entries within a tenth
+    # of their step, where the bf16 steps hold 0.9. The share follows the
+    # gradients' signs only, not their size: the gradient check above is
+    # the one that holds the backward, and the planted step shows what the
+    # share reads of a wrong one
+    for arm in ("fp8", "int8"):
+        card_vs_cpu_step(f"L3 {arm}", [f"train.low_precision.arm={arm}"], moved_close=0.8,
+                         planted="wide_x")
+    return {"grads": grads}
+
+
+def phase_l4() -> dict:
+    """The trainer CLI at ``CLI_DEPTH`` blocks with the telemetry flags: 8
+    iterations with ``telemetry.flush_every=4`` under ``--debug-nans`` and
+    ``--tensorboard`` (every loss recorded, 2 blocking fetches for the
+    metrics, no NaN); then in this process a NaN planted in a block's GELU
+    output, which ``--debug-nans`` names."""
+    import torch
+
+    import dinov3_tpu_torch.train.train as T
+    from dinov3_tpu_torch.configs import load_config
+    from dinov3_tpu_torch.ops import ffn
+
+    run = os.path.join(L_DIR, "cli")
+    losses = os.path.join(L_DIR, "l4.jsonl")
+    r = run_cli("telemetry flags", ["--output-dir", run, "--max-iterations", "8",
+                                    "--debug-nans", "--tensorboard", "--record-losses", losses],
+                overrides=["telemetry.flush_every=4", "checkpointing.period=8"],
+                label="L4", log_dir=L_DIR)
+    check(r["launches"] == {k: 8 * v for k, v in CLI_STEP_LAUNCHES.items()},
+          f"[L4] launches {r['launches']}")
+    rec = read_losses(losses)
+    check(sorted(rec) == list(range(8)) and all(np.isfinite(v["total_loss"])
+                                                for v in rec.values()), f"[L4] losses {rec}")
+    check(r["host_sync"]["fetches"] == 2 and r["metrics"] == "ring",
+          f"[L4] metrics fetches {r['host_sync']} ({r['metrics']})")
+    with open(os.path.join(L_DIR, "telemetry flags.log")) as f:
+        log = f.read()
+    tb_warn = "neither tensorboardX nor torch.utils.tensorboard" in log
+    tb_dir = os.path.isdir(os.path.join(run, "tb"))
+    check(tb_warn or tb_dir, "[L4] --tensorboard: neither a warning nor events")
+    print(f"[L4] 8 iterations, flush_every 4, --debug-nans, --tensorboard: every loss "
+          f"recorded, {r['host_sync']['fetches']} metrics fetches "
+          f"({r['host_sync']['blocked_ms']} ms blocked); tensorboard "
+          + ("warned: no writer on this machine" if tb_warn else "events written"))
+    cfg = load_config(os.path.join(REPO, CLI_CONFIG), CLI_OVERRIDES, n_devices=1)
+    cfg.train.output_dir = os.path.join(L_DIR, "planted")
+    args = T.get_args_parser().parse_args(["--max-iterations", "1", "--debug-nans"])
+    gelu = ffn.exact_gelu
+    ffn.exact_gelu = lambda x: gelu(x).mul(float("nan"))
+    try:
+        T.do_train(cfg, args)
+        raise SmokeFailure("[L4] a planted NaN did not raise under --debug-nans")
+    except FloatingPointError as e:
+        check("aten.mul.Tensor produced a NaN in the forward" in str(e), f"[L4] {e}")
+        print(f"[L4] planted NaN: {e}")
+    finally:
+        ffn.exact_gelu = gelu
+        gc.collect()
+        torch.cuda.empty_cache()
+    return r
+
+
+def phase_l() -> dict:
+    """L2-L4 (L1 runs inside phase K's CLI run, module docstring)."""
+    shutil.rmtree(L_DIR, ignore_errors=True)
+    os.makedirs(L_DIR)
+    try:
+        out = {}
+        for name, fn in (("L2", phase_l2), ("L3", phase_l3), ("L4", phase_l4)):
+            t0 = time.perf_counter()
+            out[name] = fn()
+            print(f"[L] {name} {time.perf_counter() - t0:.1f} s")
+        return out
+    finally:
+        shutil.rmtree(L_DIR, ignore_errors=True)
+
+
 def main() -> int:
     import torch
 
@@ -2918,6 +3464,7 @@ def main() -> int:
     serving = timed("J", phase_j, cfg)
     ev = timed("I", phase_i, cfg, g["benchmark"]["step_ms"])
     vitg = timed("K", phase_k)
+    lp = timed("L", phase_l)
     print(f"[smoke] all phases passed in {time.perf_counter() - t_start:.1f} s: "
           + ", ".join(f"{k} {v:.1f}" for k, v in seconds.items()))
     for key in ("K1", "K4"):
@@ -2949,18 +3496,22 @@ def main() -> int:
             # own process), 5
             # steps of the recipe as written (phase H1), 4 feature
             # batches of the eval path (phase I1), the serving plane's
-            # three measured arms (phase J1) and the ViT-g/14 recipe's 6
-            # CLI iterations (phase K1, in its own process)
+            # three measured arms (phase J1), the ViT-g/14 recipe's 11
+            # CLI iterations (phase K1, in its own process) and the
+            # recipe's 5 timed steps in bf16, fp8 and int8 (phase L2)
             "launches": (serve_launches[key] + train_launches[key] + cli["launches"][key]
                          + recipe["launches"][key] + ev["launches"][key]
-                         + serving["launches"][key] + vitg["cli"]["launches"][key]),
+                         + serving["launches"][key] + vitg["cli"]["launches"][key]
+                         + sum(lp["L2"][arm]["launches"][key] for arm in lp["L2"])),
+            "launches_per_recipe_step_fp8": lp["L2"]["fp8"]["per_step"][key],
+            "launches_per_recipe_step_int8": lp["L2"]["int8"]["per_step"][key],
             "launches_serving_plane": serving["launches"][key],
             "launches_per_serve_pack": serve_launches[key] / packs,
             "launches_per_train_step": train_launches[key] / 5,
             "launches_per_cli_iteration": cli["launches"][key] / 4,
             "launches_per_recipe_step": recipe["per_step"][key],
             "launches_per_eval_batch": ev["launches"][key] / ev["batches"],
-            "launches_per_vitg_step": vitg["cli"]["launches"][key] / 6,
+            "launches_per_vitg_step": vitg["cli"]["launches"][key] / VITG_ITERS,
             "max_abs_err": r["max_abs_err"], "ms": r["ms"],
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
             "bound_by": r["bound_by"], "library_ms": r["library_ms"],
@@ -2975,7 +3526,9 @@ def main() -> int:
           f"k-NN at ImageNet-1k size {ev['i3']['knn_s']:.2f} s, a sweep epoch "
           f"{ev['i3']['sweep_epoch_s']:.2f} s; the ViT-g/14 recipe (B={VITG_B}) "
           f"{vitg['cli']['ms_per_step']:.1f} ms a step, {vitg['cli']['img_per_sec']:.2f} img/s, "
-          f"peak {vitg['cli']['peak_memory_gib']:.2f} GiB")
+          f"peak {vitg['cli']['peak_memory_gib']:.2f} GiB; the recipe in fp8 "
+          f"{lp['L2']['fp8']['median_ms']:.1f} ms, int8 {lp['L2']['int8']['median_ms']:.1f} ms "
+          f"(bf16 {lp['L2']['bf16']['median_ms']:.1f} ms)")
     print(json.dumps({"kernels": table}))
     print(smi_line())
     print(json.dumps({"ok": True, "device": {

@@ -4,7 +4,7 @@ write-then-finalize discipline).
 
 A save of step n writes ``<dir>/tmp.<n>/state.pt`` (``torch.save`` of the
 student, the EMA teacher, the Adam moments, the softmax-centering centers,
-the update count and the step, all on the host), flushes and ``fsync``s it, then writes and ``fsync``s a
+the fp8/int8 amax rings, the update count and the step, all on the host), flushes and ``fsync``s it, then writes and ``fsync``s a
 ``FINALIZED`` marker holding the step and the payload's byte count, and
 only then renames the directory to ``<dir>/<n>/``. ``latest_step``
 announces a digit directory only when its marker parses, names that step
@@ -70,7 +70,36 @@ def state_payload(state: TrainState) -> dict:
         "mu": host(dict(zip(names, state.opt_state.mu))),
         "nu": host(dict(zip(names, state.opt_state.nu))),
         "center_state": host(state.center_state),
+        **({"lowp": {k: host(v) for k, v in state.lowp.items()}}
+           if state.lowp is not None else {}),
     }
+
+
+def _load_lowp(state: TrainState, rings: dict | None) -> None:
+    """Checkpoints cross ``train.low_precision`` arms as the reference's
+    do: matching rings restore bitwise; a run on a quantized arm restored
+    from a checkpoint without (matching) rings reseeds them from the
+    restored masters (``lowp_history_init``); rings in the checkpoint of a
+    bf16 run are ignored."""
+    if state.lowp is None:
+        return
+    like = state.lowp
+    match = rings is not None and set(rings) == set(like) and all(
+        set(rings[k]) == set(like[k])
+        and all(rings[k][n].shape == t.shape for n, t in like[k].items())
+        for k in like)
+    if match:
+        for k, ring in like.items():
+            for n, t in ring.items():
+                t.copy_(rings[k][n])
+        return
+    from dinov3_tpu_torch.ops.lowp import lowp_history_init
+
+    H = next(iter(like["student"].values())).shape[-1]
+    state.lowp = {k: lowp_history_init(getattr(state.meta, k)["backbone"], H)
+                  for k in like}
+    logger.info("restored checkpoint holds no matching lowp rings; reseeded them "
+                "from the restored masters")
 
 
 @torch.no_grad()
@@ -104,6 +133,7 @@ def load_payload(state: TrainState, payload: dict) -> TrainState:
             t.copy_(centers[k])
     state.opt_state.count = int(payload["count"])
     state.step = int(payload["step"])
+    _load_lowp(state, payload.get("lowp"))
     return state
 
 

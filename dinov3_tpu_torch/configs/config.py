@@ -167,6 +167,8 @@ def load_config(
     apply_dot_overrides(cfg, overrides)
     cfg = apply_scaling_rules_to_cfg(cfg, n_devices)
     warn_accum_batch_tiling(cfg, n_devices)
+    warn_telemetry_flush_period(cfg)
+    warn_exposed_comm(cfg)
     warn_serve_cache_memory(cfg)
     return cfg
 
@@ -297,13 +299,159 @@ def check_train_slice(cfg: ConfigNode) -> None:
         (bool(cfg.gram.use_loss), "gram.use_loss: the Gram loss waits "
          "(ROADMAP M2)"),
         (bool(cfg.distillation.enabled), "distillation waits (ROADMAP M10)"),
-        (str((cfg.train.get("low_precision") or {}).get("arm", "bf16"))
-         != "bf16" or bool(s.get("fp8_enabled")),
-         "fp8/int8 matmuls wait (ROADMAP M9)"),
     ]
     for refused, msg in waits:
         if refused:
             raise NotImplementedError(msg)
+    check_lowp_arm(cfg)
+
+
+def check_lowp_arm(cfg: ConfigNode) -> None:
+    """The arm conflicts of ``dinov3_tpu/train/setup.py``: an fp8/int8
+    ``train.low_precision.arm`` with ``student.fp8_enabled`` (both would
+    quantize the same block matmuls) or with ``ffn_layer=moe`` (the expert
+    products are not castable Dense kernels) raises ``ValueError``. MoE
+    itself is refused at the model (ROADMAP M12)."""
+    lp = lowp_cfg(cfg)
+    if lp["arm"] == "bf16":
+        return
+    s = cfg.student
+    if bool(s.get("fp8_enabled", False)):
+        raise ValueError(
+            f"train.low_precision.arm={lp['arm']!r} conflicts with "
+            "student.fp8_enabled=true: both would quantize the same block "
+            "matmuls (the legacy fp8 hook uses current per-tensor scaling, "
+            "the lowp arms delayed scaling). Pick one — arm=fp8 supersedes "
+            "fp8_enabled.")
+    if str(s.get("ffn_layer", "mlp")) == "moe":
+        raise ValueError(
+            f"train.low_precision.arm={lp['arm']!r} does not support "
+            "student.ffn_layer=moe: the expert products are not castable "
+            "Dense kernels (ops/lowp.py lowp_kernel_path).")
+
+
+def lowp_cfg(cfg: ConfigNode) -> dict:
+    """The resolved ``train.low_precision`` block (``ops/lowp.py``): ``arm``
+    (bf16, the unchanged path | fp8 | int8), ``amax_history_len`` (the
+    delayed-scaling ring length), ``scale_margin`` (headroom on the
+    history's amax) and ``divergence_tol`` (``warn_lowp_divergence``'s
+    gate). An unknown arm raises: a typo never trains bf16 quietly."""
+    lp = (cfg.get("train") or {}).get("low_precision") or {}
+    arm = str(lp.get("arm", "bf16") or "bf16")
+    from dinov3_tpu_torch.ops.lowp import LOWP_ARMS
+
+    if arm not in LOWP_ARMS:
+        raise ValueError(f"train.low_precision.arm={arm!r}: expected one of {LOWP_ARMS}")
+    return {
+        "arm": arm,
+        "amax_history_len": int(lp.get("amax_history_len", 16) or 16),
+        "scale_margin": float(lp.get("scale_margin", 1.0) or 1.0),
+        "divergence_tol": float(lp.get("divergence_tol", 0.2) or 0.2),
+    }
+
+
+def warn_lowp_divergence(drift: float, tol: float = 0.2, stacklevel: int = 2,
+                         axis: str = "lowp train matmuls") -> str | None:
+    """Warn when the measured lowp-vs-bf16 matmul drift (``ops/lowp.py
+    lowp_drift_probe``: relative Frobenius error on a sampled layer)
+    exceeds ``train.low_precision.divergence_tol``. Fired at training
+    set-up; returns the message, or None inside the band."""
+    if drift <= tol:
+        return None
+    msg = (
+        f"lowp divergence axis [{axis}]: measured quantized-matmul "
+        f"drift {drift:.4g} vs the bf16 shadow exceeds "
+        f"train.low_precision.divergence_tol={tol:.4g} — delayed "
+        f"scaling cannot represent these kernels at this arm's "
+        f"precision. Train this config in bf16 "
+        f"(train.low_precision.arm=bf16), raise scale_margin, or raise "
+        f"the tolerance only with a pinned loss-trajectory check.")
+    warnings.warn(msg, stacklevel=stacklevel + 1)
+    return msg
+
+
+def anatomy_wished(cfg: ConfigNode) -> bool:
+    """Whether the config asks for the step-anatomy ledger of the
+    ``--profile-steps`` window (``telemetry.anatomy``: auto/true, the
+    default, = parse and emit; false = the raw trace only)."""
+    t = (cfg.get("telemetry") or {}).get("anatomy", "auto")
+    if isinstance(t, str):
+        return t.lower() in ("auto", "true", "on")
+    return bool(t)
+
+
+def warn_telemetry_flush_period(cfg: ConfigNode, stacklevel: int = 2) -> str | None:
+    """Warn when ``telemetry.flush_every`` exceeds the checkpoint period
+    or the eval period: rows still in the device ring at a restart are
+    dropped, and the non-finite abort lags by up to a window
+    (``telemetry/ring.py``). Fired by ``load_config``; returns the
+    message, or None when the window fits or the ring is off."""
+    from dinov3_tpu_torch.telemetry import telemetry_wished
+
+    if not telemetry_wished(cfg):
+        return None
+    flush_every = int((cfg.get("telemetry") or {}).get("flush_every", 50))
+    offenders = []
+    ckpt_period = int(cfg.checkpointing.period)
+    if ckpt_period > 0 and flush_every > ckpt_period:
+        offenders.append(f"checkpointing.period={ckpt_period}")
+    eval_period = int(cfg.evaluation.get("eval_period_iterations", 0) or 0)
+    if eval_period > 0 and flush_every > eval_period:
+        offenders.append(f"evaluation.eval_period_iterations={eval_period}")
+    if not offenders:
+        return None
+    msg = (
+        f"telemetry flush window: telemetry.flush_every={flush_every} "
+        f"exceeds {' and '.join(offenders)} — metrics rows still in the "
+        f"on-device ring at a restart are dropped, and the non-finite "
+        f"abort lags by up to a full window (telemetry/ring.py). Lower "
+        f"telemetry.flush_every, or set telemetry.async_metrics=false "
+        f"for the per-step-fetch oracle.")
+    warnings.warn(msg, stacklevel=stacklevel + 1)
+    return msg
+
+
+def warn_exposed_comm(cfg: ConfigNode, summary: dict | None = None,
+                      stacklevel: int = 2) -> str | None:
+    """Warn when a measured anatomy ``summary`` (``ledger_summary``)
+    shows more exposed collective time than ``telemetry.exposed_comm_tol``
+    allows, naming the worst scopes; without ``summary`` (``load_config``)
+    check that the tolerance is a fraction in (0, 1]. Returns the message,
+    or None."""
+    tol = (cfg.get("telemetry") or {}).get("exposed_comm_tol", 0.25)
+    try:
+        tol = float(tol)
+    except (TypeError, ValueError):
+        tol = -1.0
+    if summary is None:
+        if 0.0 < tol <= 1.0:
+            return None
+        msg = (
+            f"exposed-comm tolerance: telemetry.exposed_comm_tol={tol!r} "
+            f"is not a fraction in (0, 1] — the anatomy guardrail "
+            f"compares measured exposed-collective device time against "
+            f"it (telemetry/anatomy.py); set e.g. 0.25.")
+        warnings.warn(msg, stacklevel=stacklevel + 1)
+        return msg
+    if not anatomy_wished(cfg):
+        return None
+    frac = float(summary.get("exposed_comm_frac", 0.0) or 0.0)
+    if frac <= tol:
+        return None
+    scopes = sorted((summary.get("collectives") or {}).items(),
+                    key=lambda kv: -kv[1].get("exposed_ms_per_step", 0.0))[:3]
+    worst = ", ".join(
+        f"{name}={ent.get('exposed_ms_per_step', 0.0):.2f}ms/step "
+        f"(overlap {ent.get('overlap_frac', 0.0):.0%})"
+        for name, ent in scopes if ent.get("exposed_ms_per_step", 0.0) > 0
+    ) or "no per-scope breakdown"
+    msg = (
+        f"exposed comm: measured exposed-collective fraction "
+        f"{frac:.1%} of device-busy time exceeds "
+        f"telemetry.exposed_comm_tol={tol:g} — the overlap schedule is "
+        f"not hiding its communication (worst scopes: {worst}).")
+    warnings.warn(msg, stacklevel=stacklevel + 1)
+    return msg
 
 
 def setup_job(cfg: ConfigNode) -> None:

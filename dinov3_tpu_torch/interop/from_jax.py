@@ -19,7 +19,8 @@ bottleneck]. A gradient tree of the same structure maps the same way.
 ``train_state_from_jax`` takes the leaves of a whole JAX ``TrainState``
 keyed by their ``jax.tree_util.keystr`` paths (the JAX package's local-npz
 checkpoint) and returns the student, the teacher, the Adam moments (keyed
-by the student's names), the update count and the step;
+by the student's names), the update count, the step and, from an fp8 /
+int8 run, the amax rings (``lowp_rings_from_jax``);
 ``teacher_backbone_from_jax`` takes only the EMA teacher's backbone (what
 the evals and serving restore). bf16 leaves that
 ``np.savez`` stored as 2-byte void records are read as bf16 by their bits.
@@ -198,16 +199,15 @@ def train_state_from_jax(flat: Mapping[str, Any]) -> dict:
     int}, names those of ``SSLMetaArch.student``. The scheduled AdamW keeps
     the schedule index (``opt_state.count``) and Adam's bias-correction
     count (``opt_state.adam.count``) apart; the port keeps one count for
-    both, so they must agree. A Gram teacher or fp8/int8 amax rings are
-    refused (ROADMAP M2, M9)."""
+    both, so they must agree. The fp8/int8 amax rings come as "lowp"
+    (``lowp_rings_from_jax``) when the state holds them. A Gram teacher is
+    refused (ROADMAP M2)."""
     tree = _keystr_tree(flat)
     params, opt = tree["params"], tree["opt_state"]
     if set(params) != {"student", "teacher"}:
         raise NotImplementedError(
             f"JAX checkpoint with params {sorted(params)}: only the student "
             "and teacher are ported (the Gram teacher waits, ROADMAP M2)")
-    if "lowp" in tree:
-        raise NotImplementedError("fp8/int8 amax rings wait (ROADMAP M9)")
     count, adam_count = int(np.asarray(opt["count"])), int(np.asarray(opt["adam"]["count"]))
     if count != adam_count:
         raise ValueError(f"schedule count {count} != Adam count {adam_count}")
@@ -216,8 +216,34 @@ def train_state_from_jax(flat: Mapping[str, Any]) -> dict:
     moments = meta_state_dicts_from_jax({"mu": opt["adam"]["mu"],
                                          "nu": opt["adam"]["nu"]})
     centers = {k: _to_torch(v, False) for k, v in tree["center_state"].items()}
+    lowp = ({k: lowp_rings_from_jax(v) for k, v in tree["lowp"].items()}
+            if isinstance(tree.get("lowp"), Mapping) else {})
     return {**out, **moments, "center_state": centers, "count": count,
-            "step": int(np.asarray(tree["step"]))}
+            "step": int(np.asarray(tree["step"])), **({"lowp": lowp} if lowp else {})}
+
+
+def lowp_rings_from_jax(tree: Mapping) -> dict[str, torch.Tensor]:
+    """One model's JAX amax history rings (``TrainState.lowp["student"]``:
+    fp32 [H] at each kernel's scale site, ``blocks_N/attn/qkv_kernel``,
+    ``blocks_N/mlp/fc1_kernel``; or [L, H] under the scanned
+    ``blocks/block``) -> {the port's weight name: fp32 [H]}, e.g.
+    ``blocks.N.attn.qkv.weight``, ``blocks.N.mlp.fc1.weight``."""
+    out = {}
+    for path, value in _flatten(tree).items():
+        *parent, leaf = path
+        if not leaf.endswith("_kernel") or len(parent) < 2:
+            raise KeyError(f"not a lowp ring site: {'/'.join(path)}")
+        site = f"{parent[-1]}.{leaf[: -len('_kernel')]}.weight"
+        a = np.asarray(value, np.float32)
+        m = re.fullmatch(r"blocks_(\d+)", parent[0])
+        if m and len(parent) == 2:
+            out[f"blocks.{m.group(1)}.{site}"] = torch.from_numpy(a.copy())
+        elif tuple(parent[:2]) == ("blocks", "block") and len(parent) == 3:
+            for i in range(a.shape[0]):
+                out[f"blocks.{i}.{site}"] = torch.from_numpy(a[i].copy())
+        else:
+            raise KeyError(f"not a lowp ring site: {'/'.join(path)}")
+    return out
 
 
 def quant_state_from_jax(params: Mapping) -> dict[str, torch.Tensor]:

@@ -3,7 +3,10 @@
 The port logs under its own logger, ``"dinov3_tpu_torch"``; the JAX
 package's ``"dinov3"`` logger is never touched. ``setup_logging`` returns
 the handlers it added so that a caller can take them off again.
-Tensorboard mirroring waits (ROADMAP M11).
+``MetricLogger(tensorboard_dir=...)`` mirrors the meters to tensorboard
+events through ``tensorboardX`` when it can be imported, else
+``torch.utils.tensorboard``, else it logs a warning and keeps JSON lines
+only.
 """
 
 from __future__ import annotations
@@ -95,16 +98,54 @@ class MetricLogger:
     """Iteration driver printing smoothed meters and an ETA, dumping JSON
     lines to ``output_file``."""
 
-    def __init__(self, delimiter: str = "  ", output_file: str | None = None):
+    def __init__(self, delimiter: str = "  ", output_file: str | None = None,
+                 tensorboard_dir: str | None = None):
         self.meters: dict[str, SmoothedValue] = defaultdict(SmoothedValue)
         self.delimiter = delimiter
         self.output_file = output_file
+        self._tb = None
+        if tensorboard_dir:
+            try:
+                from tensorboardX import SummaryWriter
+            except ImportError:
+                try:
+                    from torch.utils.tensorboard import SummaryWriter
+                except ImportError:
+                    SummaryWriter = None
+            if SummaryWriter is None:
+                logger.warning(
+                    "tensorboard_dir=%s set but neither tensorboardX nor "
+                    "torch.utils.tensorboard is importable (both are "
+                    "optional dependencies); falling back to JSON-lines "
+                    "only", tensorboard_dir)
+            else:
+                self._tb = SummaryWriter(log_dir=tensorboard_dir)
 
     def update(self, **kwargs) -> None:
         for k, v in kwargs.items():
             self.meters[k].update(float(v))
 
+    def consume_flush(self, names, iterations, rows, scheds=None) -> None:
+        """One flushed ring window (``telemetry/ring.py RingReader.flush``):
+        one meter update a row, in iteration order, so the windowed
+        medians see every step's exact value. ``scheds`` (``iteration ->
+        dict``) merges the host-side schedule values into each row."""
+        for j, it in enumerate(iterations):
+            kwargs = dict(zip(names, (float(v) for v in rows[j])))
+            if scheds is not None:
+                kwargs.update(scheds(int(it)))
+            self.update(**kwargs)
+
+    def close(self) -> None:
+        if self._tb is not None:
+            self._tb.close()
+            self._tb = None
+
     def dump_json(self, iteration: int, iter_time: float, data_time: float) -> None:
+        if self._tb is not None:
+            for k, m in self.meters.items():
+                self._tb.add_scalar(k, m.median, iteration)
+            self._tb.add_scalar("iter_time", iter_time, iteration)
         if not self.output_file:
             return
         entry = {"iteration": iteration, "iter_time": iter_time,

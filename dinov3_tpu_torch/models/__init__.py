@@ -60,6 +60,25 @@ def backbone_kwargs_from_cfg(cfg, *, teacher: bool = True) -> dict:
     )
 
 
+def fp8_blocks(cfg) -> bool:
+    """``student.fp8_enabled``: the student's block products through the
+    legacy fp8 hook (``ops/common.py fp8_matmul``) when ``fp8_filter``
+    matches ``blocks`` (the one granularity the reference supports; a
+    filter that misses it logs and leaves fp8 off). The teacher never."""
+    import re
+
+    s = cfg.student
+    if not bool(s.get("fp8_enabled", False)):
+        return False
+    filt = str(s.get("fp8_filter", "blocks") or "")
+    on = bool(re.search(filt, "blocks")) if filt else True
+    if not on:
+        logging.getLogger(LOGGER_NAME).warning(
+            "student.fp8_enabled=true but fp8_filter=%r does not match 'blocks' "
+            "(the supported granularity is the whole block stack) — fp8 is OFF", filt)
+    return on
+
+
 def remat_mode(cfg) -> str:
     """The student's activation checkpointing, as the JAX package maps it:
     ``train.checkpointing`` -> "blocks", ``train.checkpointing_full`` ->

@@ -304,7 +304,8 @@ class DinoVisionTransformer(nn.Module):
             raise ValueError(
                 f"crop packing needs k >= 2 local sequences per global row "
                 f"(N_g={layout.seq_global}, N_l={layout.seq_local})")
-        tokens = torch.cat([g_tokens, pack_local_rows(l_tokens, layout)])
+        with torch.profiler.record_function("crop_pack"):
+            tokens = torch.cat([g_tokens, pack_local_rows(l_tokens, layout)])
         seg = torch.from_numpy(packed_segment_ids(layout)).to(x.device, non_blocking=True)
         rope = None
         if self.pos_embed_type == "rope":

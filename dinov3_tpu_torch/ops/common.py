@@ -91,3 +91,51 @@ def resolve_device(device) -> torch.device:
     elif dev.type != "cpu":
         raise ValueError(f"unsupported device {device!r}: expected cuda or cpu")
     return dev
+
+
+# ---------------------------------------------------------------------
+# the legacy ``student.fp8_enabled`` hook (``dinov3_tpu/ops/common.py
+# fp8_dot_general``): current per-tensor scaling of both operands into
+# float8_e4m3, an fp8 product with fp32 accumulation, the product of the
+# scales applied to the output. Its backward is what JAX's autodiff makes
+# of that forward: the cotangent, times both scales, multiplied with the
+# other operand's codes in fp32, cast to float8_e4m3 (unscaled, so small
+# gradients flush to zero), divided by the operand's own scale.
+# ---------------------------------------------------------------------
+
+_F8_MAX = 448.0  # float8_e4m3 finite max
+
+
+def _fp8_quantize(t: torch.Tensor):
+    tf = t.float()
+    scale = tf.abs().amax().clamp_min(1e-12) / _F8_MAX
+    return (tf / scale).to(torch.float8_e4m3fn), scale
+
+
+class _Fp8Matmul(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, w):
+        from dinov3_tpu_torch.ops.lowp import codes_matmul, dequantize
+
+        ql, sl = _fp8_quantize(x.detach())
+        qr, sr = _fp8_quantize(w.detach())
+        acc = codes_matmul(ql.reshape(-1, x.shape[-1]), qr, "fp8")
+        ctx.save_for_backward(ql, sl, qr, sr)
+        ctx.dtypes = (x.dtype, w.dtype)
+        return dequantize(acc, sl * sr, x.dtype).reshape(*x.shape[:-1], w.shape[0])
+
+    @staticmethod
+    def backward(ctx, g):
+        ql, sl, qr, sr = ctx.saved_tensors
+        gs = g.float() * (sl * sr)
+        f8 = torch.float8_e4m3fn
+        dx = (gs @ qr.float()).to(f8).float() / sl
+        dw = (gs.reshape(-1, gs.shape[-1]).t() @ ql.reshape(-1, ql.shape[-1]).float())
+        dw = dw.to(f8).float() / sr
+        return dx.to(ctx.dtypes[0]), dw.to(ctx.dtypes[1])
+
+
+def fp8_matmul(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """``x @ w.T`` through the fp8 hook: x [..., K], w [N, K] (Linear
+    layout), output in x's dtype."""
+    return _Fp8Matmul.apply(x, w)

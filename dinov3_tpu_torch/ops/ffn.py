@@ -1,7 +1,9 @@
 """Feed-forward layers (``dinov3_tpu/ops/ffn.py``): the standard ViT MLP
 with exact (erf) GELU, and SwiGLU with one fused ``[gate | value]``
 projection (``w12``) and its hidden width aligned to 8, 64 or 128
-(``swiglu``, ``swiglu64``, ``swiglu128``). MoE is not ported yet."""
+(``swiglu``, ``swiglu64``, ``swiglu128``). Their products go through
+``ops/lowp.py lowp_dense`` (the fp8 / int8 arm while a scale is bound,
+the legacy fp8 hook under ``fp8``, else bf16). MoE is not ported yet."""
 
 from __future__ import annotations
 
@@ -9,7 +11,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from dinov3_tpu_torch.ops.common import dense
+from dinov3_tpu_torch.ops.lowp import lowp_dense
 
 
 def exact_gelu(x: torch.Tensor) -> torch.Tensor:
@@ -24,10 +26,12 @@ class Mlp(nn.Module):
         self.dtype = dtype
         self.fc1 = nn.Linear(dim, hidden_dim, bias=use_bias)
         self.fc2 = nn.Linear(hidden_dim, out_dim or dim, bias=use_bias)
+        self.fp8 = False
+        self.lowp = None
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        x = exact_gelu(dense(x, self.fc1.weight, self.fc1.bias, self.dtype))
-        return dense(x, self.fc2.weight, self.fc2.bias, self.dtype)
+        x = exact_gelu(lowp_dense(self, "fc1", x, self.fc1.bias, self.dtype))
+        return lowp_dense(self, "fc2", x, self.fc2.bias, self.dtype)
 
 
 def swiglu_hidden_dim(hidden_dim: int, align_to: int = 8) -> int:
@@ -50,10 +54,12 @@ class SwiGLUFFN(nn.Module):
         self.hidden = swiglu_hidden_dim(hidden_dim, align_to)
         self.w12 = nn.Linear(dim, 2 * self.hidden, bias=use_bias)
         self.w3 = nn.Linear(self.hidden, out_dim or dim, bias=use_bias)
+        self.fp8 = False
+        self.lowp = None
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        gate, value = dense(x, self.w12.weight, self.w12.bias, self.dtype).chunk(2, dim=-1)
-        return dense(F.silu(gate) * value, self.w3.weight, self.w3.bias, self.dtype)
+        gate, value = lowp_dense(self, "w12", x, self.w12.bias, self.dtype).chunk(2, dim=-1)
+        return lowp_dense(self, "w3", F.silu(gate) * value, self.w3.bias, self.dtype)
 
 
 SWIGLU_ALIGN = {"swiglu": 8, "swiglu64": 64, "swiglu128": 128}

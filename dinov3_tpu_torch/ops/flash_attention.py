@@ -35,6 +35,7 @@ import ctypes
 
 import torch
 
+from dinov3_tpu_torch.debug_nans import check_kernel
 from dinov3_tpu_torch.ops._cuda import CudaKernel, stream_ptr
 
 NEG_INF = -1e30
@@ -343,6 +344,7 @@ class _FlashAttention(torch.autograd.Function):
             out, lse = attention_plain(q, k, v, seg)
         else:
             out, lse, schedule = flash_fwd(q, k, v, seg)
+            check_kernel("K1 flash_fwd", out, lse)
         # K1's schedule, kept for K2 and K3 where they read it (bf16 with seg)
         tiles = counts = None
         if q.dtype == torch.bfloat16 and schedule is not None:
@@ -362,7 +364,9 @@ class _FlashAttention(torch.autograd.Function):
             do = do.contiguous()
             schedule = None if tiles is None else (tiles, counts)
             dq, delta = flash_bwd_dq(q, k, v, out, lse, do, seg, schedule)
+            check_kernel("K2 flash_bwd_dq", dq, delta)
             dk, dv = flash_bwd_dkv(q, k, v, lse, delta, do, seg, schedule)
+            check_kernel("K3 flash_bwd_dkv", dk, dv)
         return dq, dk, dv, None
 
 

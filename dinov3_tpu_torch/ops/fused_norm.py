@@ -22,6 +22,7 @@ import ctypes
 
 import torch
 
+from dinov3_tpu_torch.debug_nans import check_kernel
 from dinov3_tpu_torch.ops._cuda import CudaKernel, stream_ptr
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
@@ -169,7 +170,9 @@ class _LayerNorm(torch.autograd.Function):
         ctx.save_for_backward(x, scale)
         if x.device.type == "cpu":
             return layernorm_plain(x, scale, bias, eps)
-        return layernorm_fwd(x, scale, bias, eps)
+        y = layernorm_fwd(x, scale, bias, eps)
+        check_kernel("K4 layernorm_fwd", y)
+        return y
 
     @staticmethod
     def backward(ctx, g):
@@ -178,6 +181,7 @@ class _LayerNorm(torch.autograd.Function):
             dx, ds, db = layernorm_bwd_plain(x, scale, g, ctx.eps)
         else:
             dx, ds, db = layernorm_bwd(x, scale, g.contiguous(), ctx.eps)
+            check_kernel("K5 layernorm_bwd", dx, ds, db)
         return dx, ds, db, None
 
 

@@ -17,9 +17,18 @@ most once per ``heartbeat_every`` iterations; its mtime is the liveness
 signal (``watchdog.py``). Records are buffered and flushed by ``beat``,
 ``close`` and every ``flush_every_emits`` records.
 
-The trainer still times its steps with ``StepTimer`` only; its phase
-spans and the profiler window (``profile_step_begin`` / ``_end``) wait
-for the trace plane on ``torch.profiler`` (ROADMAP M11).
+Memory samples ride the same stream as ``{"name": "memory", "point":
+"flush", ...}`` records (``telemetry/memory.py``).
+
+The ``--profile-steps a,b`` window is folded in: ``profile_step_begin(a)``
+starts ``torch.profiler.profile`` (CPU and, with a card, CUDA activity;
+no shapes) and ``profile_step_end(b)`` synchronizes the card, stops it
+and exports Kineto's chrome trace gzipped to
+``<profile_dir>/<host>_<pid>.trace.json.gz``; while it is open,
+``step_annotation(it)`` marks each iteration with
+``record_function("train_step#<it>")``, which ``telemetry/anatomy.py``
+cuts steps by. ``StepTimer`` times ``--benchmark``; a run never overlaps
+the two windows (the profiler costs time inside its window).
 """
 
 from __future__ import annotations
@@ -27,6 +36,7 @@ from __future__ import annotations
 import contextlib
 import json
 import os
+import socket
 import time
 
 import torch
@@ -67,6 +77,9 @@ class SpanTracer:
         self._emits_since_flush = 0
         self._profile = profile_steps
         self._profile_dir = profile_dir
+        self._prof = None
+        self._recording = False
+        self.trace_path = None
         self._f = None
         self.spans_path = self.heartbeat_path = None
         if not self.enabled:
@@ -148,38 +161,93 @@ class SpanTracer:
     # ---- memory samples (ride the span stream) ----
 
     def emit_memory(self, point: str, iteration: int | None = None) -> None:
-        """One ``memory`` record: the allocator's bytes in use and peak on
-        the current card (``torch.cuda.memory_stats``), nothing without
-        one."""
+        """One ``memory`` record (``telemetry/memory.py sample_memory``):
+        the allocator's bytes in use and peak on each card, no device
+        entry without one."""
         if not self.enabled:
             return
-        devices = []
-        if torch.cuda.is_available():
-            stats = torch.cuda.memory_stats()
-            devices.append({
-                "id": torch.cuda.current_device(), "platform": "gpu",
-                "bytes_in_use": int(stats.get("allocated_bytes.all.current", 0)),
-                "peak_bytes_in_use": int(stats.get("allocated_bytes.all.peak", 0)),
-                "source": "torch.cuda.memory_stats"})
+        from dinov3_tpu_torch.telemetry.memory import sample_memory
+
         self.emit({
             "name": "memory", "point": point,
             "iteration": None if iteration is None else int(iteration),
-            "t": round(time.time(), 6), "devices": devices,
+            "t": round(time.time(), 6), **sample_memory(),
         })
 
-    # ---- profiler window ----
+    # ---- profiler window (--profile-steps) ----
 
     def profile_step_begin(self, iteration: int) -> None:
-        raise NotImplementedError(
-            "the --profile-steps trace window waits for the trace plane on "
-            "torch.profiler (ROADMAP M11)")
+        """The profiler window ``(a, b)``: opened at iteration a - 1 in its
+        warm-up state, which turns the device tracing on but keeps
+        nothing, so that iteration launches every kernel once under it;
+        recording from iteration a on, after the card has finished
+        iteration a - 1 and a few small launches and a pause have taken
+        the first moments of recording, outside every step. Kineto drops
+        launches after a start, so without this the window's first step
+        would come out short. Where a is the run's first iteration, the
+        warm-up is one small launch. Its steps a..b are each whole."""
+        if not self._profile or self._recording:
+            return
+        a = self._profile[0]
+        cuda = torch.cuda.is_available()
+        if self._prof is None and iteration in (a - 1, a):
+            acts = [torch.profiler.ProfilerActivity.CPU]
+            if cuda:
+                acts.append(torch.profiler.ProfilerActivity.CUDA)
+            n = self._profile[1] - a + 1
+            self._prof = torch.profiler.profile(
+                activities=acts, record_shapes=False,
+                schedule=torch.profiler.schedule(wait=0, warmup=1, active=n, repeat=1))
+            # the windows are the trainer's train_step#N annotations, not
+            # the schedule's ProfilerStep#N (which would span the window)
+            self._prof.record_steps = False
+            self._prof.start()  # warm-up: tracing on, nothing kept
+            if iteration == a - 1:
+                return
+            if cuda:
+                torch.ones(1, device="cuda").add_(1)
+        if iteration != a:
+            return
+        if cuda:
+            torch.cuda.synchronize()
+        self._prof.step()  # recording from here to profile_step_end
+        self._recording = True
+        if cuda:
+            for _ in range(8):
+                torch.ones(1, device="cuda").add_(1)
+            torch.cuda.synchronize()
+            time.sleep(0.1)
+        self.emit({"name": "profile_start", "iteration": int(iteration),
+                   "t": round(time.time(), 6)})
 
-    def profile_step_end(self, iteration: int, state=None) -> None:
-        raise NotImplementedError(
-            "the --profile-steps trace window waits for the trace plane on "
-            "torch.profiler (ROADMAP M11)")
+    def step_annotation(self, iteration: int):
+        """``record_function("train_step#<iteration>")`` while the window
+        is open, else a no-op context."""
+        if not self._recording:
+            return contextlib.nullcontext()
+        return torch.profiler.record_function(f"train_step#{int(iteration)}")
+
+    def profile_step_end(self, iteration: int, state=None) -> str | None:
+        """At the window's last iteration: wait for the card's queued
+        work, stop the profiler and export its trace; returns the path."""
+        if not self._recording or iteration != self._profile[1]:
+            return None
+        if torch.cuda.is_available():
+            torch.cuda.synchronize()
+        self._prof.stop()
+        os.makedirs(self._profile_dir, exist_ok=True)
+        self.trace_path = os.path.join(
+            self._profile_dir, f"{socket.gethostname()}_{os.getpid()}.trace.json.gz")
+        self._prof.export_chrome_trace(self.trace_path)
+        self._prof, self._recording = None, False
+        self.emit({"name": "profile_stop", "iteration": int(iteration),
+                   "t": round(time.time(), 6), "trace_path": self.trace_path})
+        return self.trace_path
 
     def close(self) -> None:
+        if self._prof is not None:  # a run that ended inside its window
+            self._prof.stop()
+            self._prof, self._recording = None, False
         if self._f is not None:
             self._f.flush()
             self._f.close()

@@ -45,7 +45,7 @@ from dinov3_tpu_torch.losses import (
     softmax_center_teacher,
     update_center,
 )
-from dinov3_tpu_torch.models import ARCHS, backbone_kwargs_from_cfg
+from dinov3_tpu_torch.models import ARCHS, backbone_kwargs_from_cfg, fp8_blocks
 from dinov3_tpu_torch.ops.common import Policy, canonical_dtype
 from dinov3_tpu_torch.ops.dino_head import DINOHead
 from dinov3_tpu_torch.ops.packing import packed_layout
@@ -96,6 +96,9 @@ class SSLMetaArch(nn.Module):
         dtype = Policy.from_cfg(cfg.compute_precision).compute_dtype
         depth = {} if n_blocks is None else {"n_blocks": n_blocks}
         backbone = ARCHS[arch](**{**backbone_kwargs_from_cfg(cfg, teacher=False), **depth})
+        if fp8_blocks(cfg):  # the student's block products only
+            for blk in backbone.blocks:
+                blk.attn.fp8 = blk.mlp.fp8 = True
         self.embed_dim = backbone.embed_dim
         self.student = nn.ModuleDict({
             "backbone": backbone,

@@ -12,15 +12,34 @@ from its newest finalized checkpoint, the data stream advanced to it
 (``--no-resume`` starts over). The last line of standard output is the
 run's result as one JSON object.
 
-Each iteration queues the step on the device with no host read, hands the
-next batch (made, and pinned for the card, on a producer thread) to the
-device, then reads the step's metrics in one transfer: the host's batch
-work overlaps the step's device work. Losses are recorded
-(``--record-losses``) and compared (``--ref-losses``) every step; three
-non-finite losses in a row abort the run with ``RuntimeError``; a
-checkpoint is saved every ``checkpointing.period`` iterations and at the
-last. Set-up garbage is collected once and frozen, so the collector's
-later passes do not walk it.
+Each iteration queues the step on the device with no host read and hands
+the next batch (made, and pinned for the card, on a producer thread) to
+the device. By default (``telemetry.async_metrics`` auto) the step writes
+its metrics into a device ring (``telemetry/ring.py``) and the host reads
+the ring once per ``telemetry.flush_every`` iterations with one fetch,
+replaying the rows into the meters, ``--record-losses`` and
+``--ref-losses``; three non-finite losses in a row, counted on the device,
+abort the run with ``RuntimeError`` at the next flush.
+``telemetry.async_metrics=false`` reads each step's metrics in one
+transfer instead (the oracle). A checkpoint is saved every
+``checkpointing.period`` iterations and at the last. Set-up garbage is
+collected once and frozen, so the collector's later passes do not walk
+it.
+
+The loop's phases (data wait, h2d, dispatch, metrics flush or fetch,
+eval, checkpoint save) are spans in ``<output-dir>/telemetry/spans.jsonl``
+with a heartbeat, memory samples at set-up, after the first step and at
+each flush, and the ``telemetry.flush_deadline_s`` watchdog on the flush
+(``telemetry/``). ``--profile-steps a,b`` records iterations a..b with
+``torch.profiler`` into ``<output-dir>/trace/*.trace.json.gz`` and writes
+the step-anatomy ledger beside it as ``anatomy.json`` (device ms by kernel
+category and named scope, per iteration; ``telemetry/anatomy.py``), with
+an ``anatomy`` span record; the window must end before ``--benchmark``'s
+timed iterations begin. ``--tensorboard`` mirrors the meters to
+``<output-dir>/tb`` (``tensorboardX``, else ``torch.utils.tensorboard``,
+else a warning). ``--debug-nans`` raises at the first op that makes a NaN,
+naming it and whether it ran in the forward or the backward
+(``debug_nans.py``).
 
 Every ``evaluation.eval_period_iterations`` iterations the EMA teacher's
 backbone is evaluated in place (``evals.do_eval``: k-NN and a linear
@@ -37,11 +56,13 @@ final student and teacher as a flat ``.npz`` (``utils.dump_weights``).
 ``train.scan_layers`` is an XLA compile option: the port's block stack is
 unrolled whatever it says, and the run logs it.
 
+``train.low_precision.arm=fp8|int8`` runs the block products quantized
+(``ops/lowp.py``); the drift probe's result is logged at set-up.
+
 Refused at start, each naming the ROADMAP item it waits for: distillation, multidistillation, high-res fine-tuning and
 pretrained weights (M10), the Gram anchor, its refresh and crop-size
-lists naming Gram teacher sizes (M12), the profiler, tensorboard and
-NaN-debug flags (M11), sharded meshes (M7, ``configs/config.py``) and an
-elastic ``--resume-topology`` (M12). There is no preemption handler
+lists naming Gram teacher sizes (M12), sharded meshes (M7,
+``configs/config.py``) and an elastic ``--resume-topology`` (M12). There is no preemption handler
 (M12): a signal ends the run, and the next one resumes from the last
 finalized checkpoint.
 """
@@ -49,6 +70,7 @@ finalized checkpoint.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import gc
 import json
 import logging
@@ -62,6 +84,7 @@ import torch
 
 from dinov3_tpu_torch.checkpoint import Checkpointer
 from dinov3_tpu_torch.configs import global_batch_size, load_config, setup_job
+from dinov3_tpu_torch.configs.config import anatomy_wished
 from dinov3_tpu_torch.data import (
     CombineDataLoader,
     SyntheticDataset,
@@ -79,7 +102,14 @@ from dinov3_tpu_torch.ops._cuda import build_kernels
 from dinov3_tpu_torch.ops.common import resolve_device
 from dinov3_tpu_torch.ops.flash_attention import FLASH_BWD_DKV, FLASH_BWD_DQ, FLASH_FWD
 from dinov3_tpu_torch.ops.fused_norm import LAYERNORM_BWD, LAYERNORM_FWD
-from dinov3_tpu_torch.telemetry import StepTimer
+from dinov3_tpu_torch.debug_nans import DebugNans
+from dinov3_tpu_torch.telemetry import (
+    SpanTracer,
+    StepTimer,
+    Watchdog,
+    emit_step_anatomy,
+    host_sync_stats,
+)
 from dinov3_tpu_torch.train.setup import build_train_setup
 from dinov3_tpu_torch.train.train_step import put_batch
 from dinov3_tpu_torch.utils import (
@@ -95,13 +125,6 @@ logger = logging.getLogger(LOGGER_NAME)
 KERNELS = {"K1": FLASH_FWD, "K2": FLASH_BWD_DQ, "K3": FLASH_BWD_DKV,
            "K4": LAYERNORM_FWD, "K5": LAYERNORM_BWD}
 
-_WAITING_FLAGS = (
-    ("profile_steps", "--profile-steps: profiler traces wait (ROADMAP M11)"),
-    ("tensorboard", "--tensorboard: tensorboard mirroring waits (ROADMAP M11)"),
-    ("debug_nans", "--debug-nans: the non-finite sanitizer waits (ROADMAP M11)"),
-)
-
-
 def get_args_parser():
     p = argparse.ArgumentParser("DINOv3 pretraining on one card")
     p.add_argument("--config-file", default="", help="run recipe YAML")
@@ -109,7 +132,8 @@ def get_args_parser():
     p.add_argument("--no-resume", action="store_true",
                    help="do not resume from the latest checkpoint")
     p.add_argument("--profile-steps", default="",
-                   help="'start,stop' profiler window (waits, ROADMAP M11)")
+                   help="'start,stop': trace iterations start..stop with "
+                        "torch.profiler and write <output-dir>/trace/anatomy.json")
     p.add_argument("--max-iterations", type=int, default=-1,
                    help="hard cap on iterations")
     p.add_argument("--record-losses", default="",
@@ -124,9 +148,9 @@ def get_args_parser():
                    help="run two steps on one batch (losses finite, every "
                         "submodule trains, the teacher EMA tracks) and exit")
     p.add_argument("--tensorboard", action="store_true",
-                   help="tensorboard events (waits, ROADMAP M11)")
+                   help="mirror the meters to tensorboard events in <output-dir>/tb")
     p.add_argument("--debug-nans", action="store_true",
-                   help="raise at the first non-finite op (waits, ROADMAP M11)")
+                   help="raise at the first op that makes a NaN, naming it")
     p.add_argument("--resume-topology", default="auto",
                    choices=("auto", "memory", "disk"),
                    help="elastic resume path; only 'auto' (one card) runs")
@@ -153,9 +177,6 @@ def refuse_waiting(cfg, args, total_iters: int) -> None:
         raise NotImplementedError(
             f"--resume-topology {args.resume_topology}: elastic resume waits "
             "(ROADMAP M12)")
-    for attr, msg in _WAITING_FLAGS:
-        if getattr(args, attr):
-            raise NotImplementedError(msg)
     s = cfg.student
     waits = [
         (bool(cfg.distillation.enabled), "distillation waits (ROADMAP M10)"),
@@ -175,6 +196,27 @@ def refuse_waiting(cfg, args, total_iters: int) -> None:
     for refused, msg in waits:
         if refused:
             raise NotImplementedError(msg)
+
+
+def profile_window(args, total_iters: int) -> tuple[int, int] | None:
+    """``--profile-steps a,b`` -> (a, b), checked: 0 <= a <= b, and the
+    window ends before ``--benchmark``'s timed iterations (and their
+    leading mark) begin, since the profiler costs time inside it."""
+    if not args.profile_steps:
+        return None
+    try:
+        a, b = (int(x) for x in args.profile_steps.split(","))
+    except ValueError as e:
+        raise ValueError(f"--profile-steps wants 'start,stop', got "
+                         f"{args.profile_steps!r}") from e
+    if not 0 <= a <= b:
+        raise ValueError(f"--profile-steps {a},{b}: need 0 <= start <= stop")
+    if args.benchmark and b >= total_iters - args.benchmark - 1:
+        raise ValueError(
+            f"--profile-steps {a},{b} overlaps --benchmark {args.benchmark}'s timed "
+            f"iterations (from {total_iters - args.benchmark - 1} of {total_iters}); "
+            "profile earlier iterations or run them apart")
+    return a, b
 
 
 def pin_batch(batch: dict) -> dict:
@@ -225,7 +267,9 @@ def resolved_engine(setup) -> dict:
             "accum_steps": int(setup.cfg.optim.get("accum_steps", 1) or 1),
             "crop_packing": meta.crop_packing, "rng_plan": meta.rng_plan,
             # an XLA compile option: the port's block stack is unrolled
-            "scan_layers": bool(setup.cfg.train.get("scan_layers", False))}
+            "scan_layers": bool(setup.cfg.train.get("scan_layers", False)),
+            "lowp_arm": setup.lowp["arm"],
+            "metrics": "ring" if setup.telemetry is not None else "per-step read"}
 
 
 def run_eval(cfg, teacher_backbone, it: int, out_dir: str) -> dict:
@@ -272,6 +316,12 @@ def do_train(cfg, args) -> dict:
     B = global_batch_size(cfg, 1)
     total_iters = total_iterations(cfg, args)
     refuse_waiting(cfg, args, total_iters)
+    prof = profile_window(args, total_iters)
+    with DebugNans() if args.debug_nans else contextlib.nullcontext():
+        return _do_train(cfg, args, device, B, total_iters, prof)
+
+
+def _do_train(cfg, args, device, B: int, total_iters: int, prof) -> dict:
     if device.type == "cuda":
         build_kernels(list(KERNELS.values()))  # one nvcc each, in parallel
     out_dir = cfg.train.output_dir
@@ -284,7 +334,16 @@ def do_train(cfg, args) -> dict:
     start_iter = latest or 0
     data_iter = build_data_iterator(cfg, B, start_iter=start_iter,
                                     pin=device.type == "cuda")
-    recorder = None
+    tele_cfg = cfg.get("telemetry") or {}
+    tracer = SpanTracer(
+        out_dir, enabled=bool(tele_cfg.get("spans", True)),
+        heartbeat_every=int(tele_cfg.get("heartbeat_every", 1)),
+        profile_steps=prof, profile_dir=f"{out_dir}/trace",
+        flush_every_emits=int(tele_cfg.get("span_autoflush_every", 32)))
+    # a metrics flush slower than the deadline emits a stall span (0: off)
+    watchdog = Watchdog(tracer, deadline_s=float(tele_cfg.get("flush_deadline_s", 0.0) or 0.0))
+    memory_on = bool(tele_cfg.get("memory", True)) and tracer.enabled
+    recorder = metric_logger = None
     gc_times = _GcTimes()
     frozen = False
     try:
@@ -293,11 +352,18 @@ def do_train(cfg, args) -> dict:
         setup = build_train_setup(cfg, first, device=device, seed=cfg.train.seed)
         logger.info("device %s | batch %d | setup %.1f s", device, B,
                     time.perf_counter() - t0)
+        if memory_on:
+            tracer.emit_memory("setup")
         engine = resolved_engine(setup)
         logger.info("targets %s (%s, k_tile %d) | remat %s | accum_steps %d | "
-                    "crop_packing %s | rng.plan %s", engine["targets"],
-                    engine["centering"], engine["k_tile"], engine["remat"],
-                    engine["accum_steps"], engine["crop_packing"], engine["rng_plan"])
+                    "crop_packing %s | rng.plan %s | lowp %s | metrics %s",
+                    engine["targets"], engine["centering"], engine["k_tile"],
+                    engine["remat"], engine["accum_steps"], engine["crop_packing"],
+                    engine["rng_plan"], engine["lowp_arm"], engine["metrics"])
+        if setup.lowp_drift is not None:
+            logger.info("lowp drift probe (%s): max %.4g against divergence_tol %.4g: %s",
+                        engine["lowp_arm"], setup.lowp_drift["max"],
+                        setup.lowp["divergence_tol"], setup.lowp_drift)
         if engine["scan_layers"]:
             logger.info("train.scan_layers=true is an XLA compile option; the "
                         "port runs its block stack unrolled, the same numbers")
@@ -311,6 +377,8 @@ def do_train(cfg, args) -> dict:
 
         state = setup.state
         result: dict = {"start_iteration": start_iter, **engine}
+        if setup.lowp_drift is not None:
+            result["lowp_drift"] = setup.lowp_drift
         if latest is not None:
             t_res = time.perf_counter()
             state = ckpt.restore(state)
@@ -331,14 +399,21 @@ def do_train(cfg, args) -> dict:
             count_parameters(setup.meta.student)))
         recorder = LossRecorder(args.record_losses) if args.record_losses else None
         comparator = LossComparator(args.ref_losses) if args.ref_losses else None
-        metric_logger = MetricLogger(output_file=f"{out_dir}/training_metrics.json")
+        metric_logger = MetricLogger(
+            output_file=f"{out_dir}/training_metrics.json",
+            tensorboard_dir=f"{out_dir}/tb" if args.tensorboard else None)
         timer = StepTimer(args.benchmark, total_iters, device)
         period = int(cfg.checkpointing.period)
         eval_period = int(cfg.evaluation.get("eval_period_iterations", 0) or 0)
+        anatomy_on = anatomy_wished(cfg)
+        plan = setup.telemetry
+        ring = plan.init_ring() if plan is not None else None
+        reader = plan.reader(start_iteration=start_iter) if plan is not None else None
         evals = []
         nan_streak = 0
         last_loss = math.nan
         saves = []
+        compile_sampled = False
         if device.type == "cuda":
             torch.cuda.reset_peak_memory_stats(device)
         gc.collect()
@@ -346,48 +421,120 @@ def do_train(cfg, args) -> dict:
         gc.callbacks.append(gc_times)
         frozen = True
 
+        def sched_row(i: int) -> dict:
+            s = setup.schedules.at(i)
+            return {"lr": s["lr"], "wd": s["weight_decay"], "mom": s["momentum"],
+                    "teacher_temp": s["teacher_temp"]}
+
+        def flush_ring(upto: int) -> None:
+            """One fetch of the ring; its rows replayed into the meters, the
+            recorder and the comparator; then the 3-strike abort, from the
+            flushed losses counted on the host across flushes as the
+            one-read-a-step path counts them."""
+            nonlocal last_loss, nan_streak
+            with watchdog.window("metrics_flush", iteration=upto - 1), \
+                    tracer.span("metrics_flush", upto - 1):
+                its, rows, _ = reader.flush(ring, upto)
+            if not len(its):
+                return
+            loss_col = plan.metric_names.index("total_loss")
+            worst = 0
+            for j, row_it in enumerate(its):
+                if math.isfinite(rows[j][loss_col]):
+                    nan_streak = 0
+                    continue
+                logger.warning("non-finite loss at iteration %d", row_it)
+                nan_streak += 1
+                worst = max(worst, nan_streak)
+            if recorder is not None:
+                recorder.record_batch(its, plan.metric_names, rows)
+            if comparator is not None:
+                comparator.check_batch(its, plan.metric_names, rows)
+            metric_logger.consume_flush(plan.metric_names, its, rows, scheds=sched_row)
+            last_loss = float(rows[-1][loss_col])
+            if memory_on:
+                tracer.emit_memory("flush", int(its[-1]))
+            if worst > 2:  # the checkpointer is closed on the way out
+                raise RuntimeError(f"aborting: {worst} consecutive non-finite losses")
+
+        host_sync_stats(reset=True)
         pending = put_batch(first, device)
         steps = metric_logger.log_every(
-            data_iter, print_freq=10, header="Train", n_iterations=total_iters,
+            tracer.wrap_iter(data_iter, start_iteration=start_iter), print_freq=10,
+            header="Train", n_iterations=total_iters,
             start_iteration=start_iter) if start_iter < total_iters else ()
         for it, raw in steps:
-            state, step_metrics = setup.launch_fn(state, pending, setup.scalars(it))
-            pending = put_batch(raw, device)  # queued behind the step
-            metrics = step_metrics.read()     # the step's one host read
-            last_loss = metrics["total_loss"]
-            if recorder is not None:
-                recorder.record(it, metrics)
-            if comparator is not None:
-                comparator.check(it, metrics)
-            if not math.isfinite(last_loss):
-                nan_streak += 1
-                logger.warning("non-finite loss at iteration %d", it)
-                if nan_streak > 2:  # the checkpointer is closed on the way out
-                    raise RuntimeError(
-                        f"aborting: {nan_streak} consecutive non-finite losses")
-            else:
-                nan_streak = 0
-            sched = setup.schedules.at(it)
-            metric_logger.update(lr=sched["lr"], wd=sched["weight_decay"],
-                                 mom=sched["momentum"],
-                                 teacher_temp=sched["teacher_temp"], **metrics)
+            tracer.profile_step_begin(it)
+            with tracer.step_annotation(it):
+                with tracer.span("dispatch", it):
+                    if plan is not None:  # the metrics stay on the device
+                        state, ring = plan.launch_fn(state, ring, pending,
+                                                     setup.scalars(it))
+                    else:
+                        state, step_metrics = setup.launch_fn(state, pending,
+                                                              setup.scalars(it))
+                with tracer.span("h2d", it):
+                    pending = put_batch(raw, device)  # queued behind the step
+                if memory_on and not compile_sampled:
+                    tracer.emit_memory("compile", it)
+                    compile_sampled = True
+                if plan is None:
+                    with tracer.span("metrics_fetch", it):
+                        metrics = step_metrics.read()  # the step's one host read
+                    last_loss = metrics["total_loss"]
+                    if recorder is not None:
+                        recorder.record(it, metrics)
+                    if comparator is not None:
+                        comparator.check(it, metrics)
+                    if not math.isfinite(last_loss):
+                        nan_streak += 1
+                        logger.warning("non-finite loss at iteration %d", it)
+                        if nan_streak > 2:
+                            raise RuntimeError(
+                                f"aborting: {nan_streak} consecutive non-finite losses")
+                    else:
+                        nan_streak = 0
+                    metric_logger.update(**sched_row(it), **metrics)
+                elif it + 1 - reader.cursor >= plan.ring_len or it + 1 >= total_iters:
+                    # before the checkpoint, so a save's metrics are recorded
+                    flush_ring(it + 1)
+            if tracer.profile_step_end(it) is not None:
+                if device.type != "cuda":
+                    logger.info("trace in %s; the anatomy ledger reads the card's "
+                                "kernels, of which a CPU run has none", tracer.trace_path)
+                elif anatomy_on:
+                    # raises on a trace with no device event
+                    result["anatomy"] = summary = emit_step_anatomy(
+                        f"{out_dir}/trace", tracer=tracer, cfg=cfg, iteration=it,
+                        n_steps=prof[1] - prof[0] + 1)
+                    logger.info("step anatomy: %.2f ms/step of device time over %.2f "
+                                "ms of wall (ledger: %s/trace/anatomy.json)",
+                                summary["device_busy_ms_per_step"],
+                                summary["step_wall_ms"]["mean"], out_dir)
             if timer.active(it):
                 timer.mark()
             if eval_period and (it + 1) % eval_period == 0:
-                evals.append(run_eval(cfg, setup.meta.teacher["backbone"], it, out_dir))
+                with tracer.span("eval", it):
+                    evals.append(run_eval(cfg, setup.meta.teacher["backbone"], it, out_dir))
                 metric_logger.update(**{k: evals[-1][k] for k in ("knn_top1", "linear_top1")})
                 timer.exclude(evals[-1]["seconds"])
             if (it + 1) % period == 0 or it + 1 == total_iters:
-                saves.append(ckpt.save(it + 1, state))
+                with tracer.span("checkpoint_save", it):
+                    saves.append(ckpt.save(it + 1, state))
                 timer.exclude(saves[-1]["seconds"])
             if it + 1 >= total_iters:
                 break
+            tracer.beat(it)
+        result["host_sync"] = host_sync_stats()
     finally:
         if frozen:
             gc.callbacks.remove(gc_times)
             gc.unfreeze()
         data_iter.close()
         ckpt.close()
+        tracer.close()
+        if metric_logger is not None:
+            metric_logger.close()
         if recorder is not None:
             recorder.close()
 
@@ -396,6 +543,8 @@ def do_train(cfg, args) -> dict:
         "saves": saves, "evals": evals, "gc": gc_times.summary(),
         "launches": {k: kern.launches for k, kern in KERNELS.items()},
     })
+    if tracer.trace_path is not None:
+        result["trace"] = tracer.trace_path
     if device.type == "cuda":
         result["peak_memory_gib"] = torch.cuda.max_memory_allocated(device) / 2 ** 30
     if recorder is not None:

@@ -10,17 +10,29 @@ and handed back: ``step(state, batch, scalars, plan=None) -> (state,
 metrics)``. The step's metrics cross to the host in one read:
 ``launch`` returns them as ``StepMetrics``, one device tensor, and a
 training loop reads it once it has queued the next batch's copy, so the
-host's batch work overlaps the step's device work.
+host's batch work overlaps the step's device work (the oracle, under
+``telemetry.async_metrics=false``). ``make_telemetry_launch`` instead
+writes them into the device metrics ring (``telemetry/ring.py``), read
+once per ``telemetry.flush_every`` steps.
+
+Under an fp8 / int8 ``train.low_precision.arm`` the step takes this
+step's weight scales from the amax rings in ``TrainState.lowp`` before the
+forward, binds them to the student's and the teacher's block products
+(``ops/lowp.py lowp_bound``) for the forward and backward, and advances
+the rings from the updated masters after AdamW and the EMA.
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 
 import numpy as np
 import torch
 
+from dinov3_tpu_torch.ops.lowp import lowp_bound, lowp_scales, lowp_state_step
 from dinov3_tpu_torch.rng.plan import plan_to_device
+from dinov3_tpu_torch.telemetry.ring import write_row
 from dinov3_tpu_torch.train.optimizer import AdamWState, ScheduledAdamW
 from dinov3_tpu_torch.train.ssl_meta_arch import SSLMetaArch
 
@@ -33,6 +45,9 @@ class TrainState:
     # softmax-centering EMA centers {"dino_center", "ibot_center"} (fp32
     # [1, K]); None: meta.init_state() on the student's device
     center_state: dict | None = None
+    # fp8/int8 amax history rings {"student": {weight name: fp32 [H]},
+    # "teacher": {...}} (ops/lowp.py); None on the bf16 arm
+    lowp: dict | None = None
 
     def __post_init__(self):
         if self.center_state is None:
@@ -66,6 +81,17 @@ class StepMetrics:
 
     def read(self) -> dict:
         return dict(zip(self.names, self.values.tolist()))
+
+
+# the loss terms of ``SSLMetaArch.compute_losses``, in its order
+LOSS_NAMES = ("dino_local_crops_loss", "dino_global_crops_loss", "koleo_loss",
+              "ibot_loss", "total_loss")
+
+
+def metric_names(meta: SSLMetaArch) -> list:
+    """The step's metrics in ``StepMetrics`` order: the loss terms, then
+    the per-submodel pre-clip gradient norms."""
+    return list(LOSS_NAMES) + [f"grad_norm/{k}" for k in meta.student.keys()]
 
 
 def split_microbatches(batch: dict, accum_steps: int) -> list[dict]:
@@ -102,7 +128,7 @@ def split_microbatches(batch: dict, accum_steps: int) -> list[dict]:
 
 
 def make_train_launch(optimizer: ScheduledAdamW, seed: int = 0,
-                      accum_steps: int = 1):
+                      accum_steps: int = 1, lowp: dict | None = None):
     """Returns ``launch(state, batch, scalars, plan=None) -> (state,
     StepMetrics)``: the step, queued on the device with no host read.
 
@@ -123,9 +149,14 @@ def make_train_launch(optimizer: ScheduledAdamW, seed: int = 0,
     that rematerializes each microbatch (``jax.checkpoint`` inside a
     scan); a backward per microbatch gives the same numbers (up to the
     order of the gradient sums) with live activations one microbatch deep,
-    without recomputing."""
+    without recomputing.
+
+    ``lowp`` (``configs/config.py lowp_cfg``): an fp8 / int8 arm runs the
+    block products quantized while ``state.lowp`` holds rings (module
+    docstring); bf16 (or None) is the unchanged step."""
     if accum_steps < 1:
         raise ValueError(f"optim.accum_steps must be >= 1, got {accum_steps}")
+    arm = (lowp or {}).get("arm", "bf16")
 
     def launch(state: TrainState, batch: dict, scalars: dict, plan=None):
         meta = state.meta
@@ -144,19 +175,30 @@ def make_train_launch(optimizer: ScheduledAdamW, seed: int = 0,
         temp = float(scalars["teacher_temp"])
         meta.student.zero_grad(set_to_none=True)
         terms, centers = [], []
-        for j, (mb, p) in enumerate(zip(micro, plans)):
-            if p is None:
-                p = meta.draw_plan(seed, state.step, mb,
-                                   None if accum_steps == 1 else j)
-            total, loss_dict, new_centers = meta(
-                mb, teacher_temp=temp, iteration=state.step,
-                plan=plan_to_device(p, device), state=state.center_state)
-            (total if accum_steps == 1 else total / accum_steps).backward()
-            terms.append(torch.stack([v.detach().float() for v in loss_dict.values()]))
-            centers.append(new_centers)
+        scales = None
+        if arm != "bf16" and state.lowp is not None:
+            scales = {k: lowp_scales(h, arm, lowp["scale_margin"])
+                      for k, h in state.lowp.items()}
+        with contextlib.ExitStack() as bound:
+            if scales is not None:
+                for k in ("student", "teacher"):
+                    bound.enter_context(lowp_bound(getattr(meta, k)["backbone"],
+                                                   scales[k], arm))
+            for j, (mb, p) in enumerate(zip(micro, plans)):
+                if p is None:
+                    p = meta.draw_plan(seed, state.step, mb,
+                                       None if accum_steps == 1 else j)
+                total, loss_dict, new_centers = meta(
+                    mb, teacher_temp=temp, iteration=state.step,
+                    plan=plan_to_device(p, device), state=state.center_state)
+                (total if accum_steps == 1 else total / accum_steps).backward()
+                terms.append(torch.stack([v.detach().float() for v in loss_dict.values()]))
+                centers.append(new_centers)
         norms = optimizer.update(meta.student, meta.teacher, state.opt_state,
                                  float(scalars["momentum"]))
         meta.student.zero_grad(set_to_none=True)
+        if scales is not None:  # delayed scaling: the rings see the new masters
+            state.lowp = lowp_state_step(state.lowp, meta)
         state.step += 1
         if accum_steps == 1:
             state.center_state = centers[0]
@@ -172,15 +214,38 @@ def make_train_launch(optimizer: ScheduledAdamW, seed: int = 0,
     return launch
 
 
-def make_train_step(optimizer: ScheduledAdamW, seed: int = 0, accum_steps: int = 1):
+def make_train_step(optimizer: ScheduledAdamW, seed: int = 0, accum_steps: int = 1,
+                    lowp: dict | None = None):
     """Returns ``step(state, batch, scalars, plan=None) -> (state,
     metrics)``: ``make_train_launch``'s step followed by its one read;
     ``metrics`` holds the loss terms and the per-submodel pre-clip
     gradient norms as floats."""
-    launch = make_train_launch(optimizer, seed, accum_steps)
+    launch = make_train_launch(optimizer, seed, accum_steps, lowp)
 
     def step(state: TrainState, batch: dict, scalars: dict, plan=None):
         state, metrics = launch(state, batch, scalars, plan)
         return state, metrics.read()
 
     return step
+
+
+def make_telemetry_launch(launch, names) -> callable:
+    """Wrap ``launch(state, batch, scalars, plan=None) -> (state,
+    StepMetrics)`` into ``(state, ring, batch, scalars, plan=None) ->
+    (state, ring)``: the step's metrics never leave the device; their row
+    is written into the ring at slot ``state.step % K`` and the ring's
+    non-finite streak advances from ``total_loss``
+    (``telemetry/ring.py write_row``). ``names`` fixes the column order
+    the host reader interprets."""
+    names = list(names)
+    loss_col = names.index("total_loss")
+
+    def telemetry_launch(state: TrainState, ring, batch: dict, scalars: dict,
+                         plan=None):
+        it = state.step  # the row's stamp: the iteration before the increment
+        state, metrics = launch(state, batch, scalars, plan)
+        if metrics.names != names:
+            raise RuntimeError(f"step metrics {metrics.names} != ring columns {names}")
+        return state, write_row(ring, it, metrics.values, loss_col)
+
+    return telemetry_launch

@@ -59,6 +59,13 @@ class LossRecorder:
         self._f.write(json.dumps(row) + "\n")
         self._f.flush()
 
+    def record_batch(self, iterations, names, rows) -> None:
+        """Record one flushed ring window: ``rows[j]`` holds the metrics of
+        ``iterations[j]`` in ``names``' order (``telemetry/ring.py``), the
+        exact values a one-read-a-step run records."""
+        for it, row in zip(iterations, rows):
+            self.record(int(it), dict(zip(names, row)))
+
     def close(self) -> None:
         self._f.close()
 
@@ -98,6 +105,14 @@ class LossComparator:
             if err > self.worst[0]:
                 self.worst = (err, key, iteration)
         self.n_diverged += not ok
+        return ok
+
+    def check_batch(self, iterations, names, rows) -> bool:
+        """``check`` every row of one flushed ring window; whether all
+        matched."""
+        ok = True
+        for it, row in zip(iterations, rows):
+            ok = self.check(int(it), dict(zip(names, row))) and ok
         return ok
 
     def summary(self) -> str:

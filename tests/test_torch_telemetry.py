@@ -316,19 +316,32 @@ def test_watchdog_stall_span_equals_jax(tmp_path):
 
 
 def test_profiler_window_and_memory_sample(tmp_path):
-    """The profiler window waits for the trace plane and says so; a
-    memory record rides the stream (no device on the CPU)."""
-    from dinov3_tpu_torch.telemetry import SpanTracer
+    """The profiler window opens at its first iteration and closes at its
+    last, exporting a gzipped chrome trace that ``load_trace`` reads with
+    the window's step annotations; the window's records and a memory
+    record ride the stream (no device on the CPU)."""
+    from dinov3_tpu_torch.telemetry import SpanTracer, find_trace_file, load_trace
 
-    tr = SpanTracer(str(tmp_path), profile_steps=(1, 2))
-    for call in (tr.profile_step_begin, tr.profile_step_end):
-        with pytest.raises(NotImplementedError, match="M11"):
-            call(1)
+    tr = SpanTracer(str(tmp_path), profile_steps=(1, 2),
+                    profile_dir=str(tmp_path / "trace"))
+    for it in range(4):
+        tr.profile_step_begin(it)
+        with tr.step_annotation(it):
+            torch.ones(8, 8) @ torch.ones(8, 8)
+        assert (tr.profile_step_end(it) is not None) == (it == 2)
     tr.emit_memory("setup", 0)
     tr.close()
-    (rec,) = _records(tr.spans_path)
-    assert rec["name"] == "memory" and rec["point"] == "setup"
-    assert rec["devices"] == ([] if not torch.cuda.is_available() else rec["devices"])
+    recs = _records(tr.spans_path)
+    assert [(r["name"], r["iteration"]) for r in recs] == [
+        ("profile_start", 1), ("profile_stop", 2), ("memory", 0)]
+    assert recs[1]["trace_path"] == find_trace_file(str(tmp_path / "trace"))
+    trace = load_trace(recs[1]["trace_path"])
+    names = {e.name for e in trace.events if e.cat == "user_annotation"}
+    assert {"train_step#1", "train_step#2"} <= names and "train_step#0" not in names
+    # the warm-up's schedule adds no ProfilerStep#N over the window's steps
+    assert not any(n.startswith("ProfilerStep#") for n in names), names
+    assert recs[2]["point"] == "setup"
+    assert recs[2]["devices"] == ([] if not torch.cuda.is_available() else recs[2]["devices"])
 
 
 # ---------------- the fetch funnel ----------------

@@ -78,6 +78,11 @@ def _process_state_unchanged():
 
     log = logging.getLogger(LOGGER_NAME)
     before = (gc.isenabled(), list(gc.callbacks), list(log.handlers))
+    # a full collection moves the interpreter's immortal start-up objects
+    # (375 here) into the permanent generation, from which an earlier
+    # test's ``do_train`` unfroze them: count them in before the test, so
+    # that a full collection inside it is not taken for a freeze
+    gc.collect()
     frozen = gc.get_freeze_count()
     yield
     for t in threading.enumerate():
@@ -335,7 +340,10 @@ def test_checkpoint_retention(tmp_path, max_to_keep, keep_every, kept):
 
 def test_three_non_finite_losses_abort_with_no_save_after_them(tmp_path, monkeypatch):
     """Batches 2, 3, 4 carry NaN pixels: the losses of iterations 2-4 are
-    not finite and the third raises, before that iteration's save."""
+    not finite and the third raises, before that iteration's save. The
+    metrics ring is flushed every step here (``telemetry.flush_every=1``),
+    so the host counts each loss as it comes; a wider window aborts at
+    its next flush (``tests/test_torch_ring.py``)."""
     import dinov3_tpu_torch.train.train as T
     from dinov3_tpu_torch.checkpoint import Checkpointer
 
@@ -347,7 +355,8 @@ def test_three_non_finite_losses_abort_with_no_save_after_them(tmp_path, monkeyp
             return batch
 
     monkeypatch.setattr(T, "SyntheticDataset", Poisoned)
-    cfg = port_cfg(tmp_path, ["checkpointing.period=1", "checkpointing.max_to_keep=10"])
+    cfg = port_cfg(tmp_path, ["checkpointing.period=1", "checkpointing.max_to_keep=10",
+                              "telemetry.flush_every=1"])
     with pytest.raises(RuntimeError, match="3 consecutive non-finite losses"):
         T.do_train(cfg, port_args("--max-iterations", 8,
                                   "--record-losses", tmp_path / "l.jsonl"))
@@ -361,7 +370,9 @@ def test_three_non_finite_losses_abort_with_no_save_after_them(tmp_path, monkeyp
 
 def test_a_finite_loss_resets_the_non_finite_streak(tmp_path, monkeypatch):
     """Non-finite totals at iterations 1, 2, 4, 5: two in a row at most, so
-    the run ends normally."""
+    the run ends normally. The one-read-a-step path
+    (``telemetry.async_metrics=false``), whose reads this patches; the
+    ring's streak is held in ``tests/test_torch_ring.py``."""
     import dinov3_tpu_torch.train.train as T
     from dinov3_tpu_torch.train import train_step
 
@@ -376,7 +387,8 @@ def test_a_finite_loss_resets_the_non_finite_streak(tmp_path, monkeypatch):
         return metrics
 
     monkeypatch.setattr(train_step.StepMetrics, "read", read_with_gaps)
-    result = T.do_train(port_cfg(tmp_path), port_args("--max-iterations", 6))
+    result = T.do_train(port_cfg(tmp_path, ["telemetry.async_metrics=false"]),
+                        port_args("--max-iterations", 6))
     assert result["iterations"] == 6 and len(calls) == 6
     assert math.isnan(result["final_loss"])
 
@@ -410,17 +422,15 @@ def test_ref_losses_compare_against_a_file_the_jax_recorder_wrote(uninterrupted,
     assert bumped["loss_divergences"] == 1 and "at iter 2" in bumped["loss_comparison"]
 
 
+# ids as they were before the three M11 flags (now run, below) left the list
 @pytest.mark.parametrize("argv,extra,where", [
-    (["--tensorboard"], [], "M11"),
-    (["--profile-steps", "1,2"], [], "M11"),
-    (["--debug-nans"], [], "M11"),
-    (["--resume-topology", "memory"], [], "M12"),
-    ([], ["multidistillation.enabled=true"], "M10"),
-    ([], ["hrft.enabled=true"], "M10"),
-    ([], ["gram.ckpt=/nowhere"], "M12"),
-    ([], ["crops.global_crops_size=[16,32]", "crops.local_crops_size=[8,8]",
-          "crops.gram_teacher_crops_size=[16,32]"], "M12"),
-    ([], ["parallel.fsdp=8"], "M7"),
+    pytest.param(["--resume-topology", "memory"], [], "M12", id="argv3-extra3-M12"),
+    pytest.param([], ["multidistillation.enabled=true"], "M10", id="argv4-extra4-M10"),
+    pytest.param([], ["hrft.enabled=true"], "M10", id="argv5-extra5-M10"),
+    pytest.param([], ["gram.ckpt=/nowhere"], "M12", id="argv6-extra6-M12"),
+    pytest.param([], ["crops.global_crops_size=[16,32]", "crops.local_crops_size=[8,8]",
+                      "crops.gram_teacher_crops_size=[16,32]"], "M12", id="argv7-extra7-M12"),
+    pytest.param([], ["parallel.fsdp=8"], "M7", id="argv8-extra8-M7"),
 ])
 def test_trainer_refuses_what_waits_by_name(tmp_path, argv, extra, where):
     import dinov3_tpu_torch.train.train as T
@@ -428,6 +438,27 @@ def test_trainer_refuses_what_waits_by_name(tmp_path, argv, extra, where):
     with pytest.raises(NotImplementedError, match=where):
         T.do_train(port_cfg(tmp_path, extra),
                    port_args("--max-iterations", 4, *argv))
+
+
+def test_trainer_runs_the_m11_flags_it_used_to_refuse(tmp_path):
+    """``--tensorboard``, ``--profile-steps`` and ``--debug-nans``, once
+    refused by name (ROADMAP M11), run: the losses are those of the same
+    run without them, bitwise; the trace window and the tensorboard
+    directory are written; on the CPU the ledger is not made (it reads
+    the card's kernels). The flags' own checks are in
+    ``tests/test_torch_ring.py`` and ``tests/test_torch_anatomy.py``."""
+    import dinov3_tpu_torch.train.train as T
+
+    with cli_threads():
+        plain = T.do_train(port_cfg(tmp_path / "plain"), port_args(
+            "--max-iterations", 3, "--record-losses", tmp_path / "plain.jsonl"))
+        flags = T.do_train(port_cfg(tmp_path / "flags"), port_args(
+            "--max-iterations", 3, "--record-losses", tmp_path / "flags.jsonl",
+            "--tensorboard", "--profile-steps", "0,1", "--debug-nans"))
+    assert read_losses(tmp_path / "flags.jsonl") == read_losses(tmp_path / "plain.jsonl")
+    assert flags["final_loss"] == plain["final_loss"] and "anatomy" not in flags
+    assert Path(flags["trace"]).is_file() and flags["trace"].endswith(".trace.json.gz")
+    assert (tmp_path / "flags" / "tb").is_dir() and any((tmp_path / "flags" / "tb").iterdir())
     assert not (tmp_path / "ckpt").exists()
 
 
