@@ -41,15 +41,17 @@ F. one training step of a 2-block ViT-L-width model (4096 prototypes,
    weights, batch and drop-path plan: loss terms, gradient norms and the
    updated student compared;
 G. the pretraining CLI (``python -m dinov3_tpu_torch.train.train``) at
-   ViT-L/16 full width cut to 4 blocks (``CLI_DEPTH``: phases H7 and K1
-   run the CLI at full depth), B=32, synthetic data, each run a child
-   process with a time limit: uninterrupted to 4 iterations; to 2; then,
-   with a torn ``tmp.3/`` and an unfinalized ``3/`` planted, resumed in a
-   new process to 4, its losses compared with the uninterrupted run's
-   (``--ref-losses``) and its final teacher with that run's; before them a
-   longer ``--benchmark`` run; ``--self-check``; and 2 steps of the image-folder
-   pipeline on texture images. Each child's K1-K5 launches are checked
-   against ``CLI_STEP_LAUNCHES`` per step; the checkpoints are deleted after.
+   ViT-L/16 full width cut to 4 blocks (``CLI_DEPTH``: phases H7 and K1 run the
+   CLI at full depth), B=32, synthetic data, each run a child process
+   with a time limit: 12 iterations, the last 8 timed by ``--benchmark``,
+   a save every 4 (its step-4 checkpoint is phase I's and J4's); from
+   that save, with a torn ``tmp.5/`` and an unfinalized ``5/`` planted, a
+   resume in a new process to 8, its losses compared with the
+   uninterrupted run's (``--ref-losses``), its final teacher with that
+   run's, and its ``--dump-weights`` with its own last checkpoint;
+   ``--self-check``; and 2 steps of the image-folder pipeline on texture
+   images. Each child's K1-K5 launches are checked against
+   ``CLI_STEP_LAUNCHES`` per step; the checkpoints are deleted after.
 
 H. the recipe as written (``configs/train/vitl16_im1k.yaml`` with only
    ``data.backend=synthetic``: B=64, streaming Sinkhorn targets, K-tile
@@ -94,12 +96,13 @@ K. the ViT-g/14 web-shard recipe (``configs/train/vitg14_webshards.yaml``:
    ``parallel.fsdp=1``): K1-K5 against their plain versions at its shapes
    (K0: N = 261 with and without ids, N = 54, D = 1536); the trainer CLI at
    full width and depth, B=16, from 320 seeded JPEGs in web shards it
-   writes, 6 iterations (4 timed: ms a step, img/s, peak memory, launches
-   pinned a step) and a resume from their save in a new process (K1);
-   the options this slice lifts as card-vs-CPU steps of a 2-block model
-   at ViT-g width: RoPE coordinate augmentation, the two-pass student
-   with ``rng.plan=false``, a crop-size list's second entry, and
-   ``--dump-weights`` through the CLI (K2); a SwiGLU ViT-g state_dict in
+   writes, 11 iterations (4 timed: ms a step, img/s, peak memory, launches
+   pinned a step; the resumes in a new process are phase G's and M3's)
+   (K1); the options the slice
+   lifted as card-vs-CPU steps of a 2-block model at
+   ViT-g width: the two-pass student with ``rng.plan=false`` and RoPE
+   coordinate augmentation, and RoPE augmentation on a crop-size list's
+   second entry (K2); a SwiGLU ViT-g state_dict in
    Meta's names (2 blocks) served from its file by the packed engine on
    the card against the CPU (K3). K1's CLI run takes 11 iterations: 3-5
    under ``--profile-steps`` (L1, below), 7-10 timed by ``--benchmark``.
@@ -125,6 +128,22 @@ L. the trainer's telemetry and the fp8 / int8 arms: the step anatomy of
    iterations with ``telemetry.flush_every=4`` under ``--debug-nans`` and
    ``--tensorboard`` (every loss recorded, 2 metrics fetches), and a NaN
    planted in a block's GELU, which ``--debug-nans`` names (L4).
+M. the Gram anchor at ViT-7B width (``configs/train/vit7b16_gram_anchor.yaml``:
+   4096 wide, 32 heads of 128, SwiGLU 64 at ratio 3, 4 registers, 262,144 /
+   98,304 prototypes, B=16, 512 px Gram teacher crops, ``gram.img_level``;
+   one-card overrides ``parallel.fsdp=1 data.backend=synthetic``): K1-K5
+   against their plain versions at head_dim 128 and D = 4096 (M0: the
+   student's packed rows with ids, the teacher's N = 261 and the Gram
+   teacher's N = 1029 without, the LayerNorms' general path); the step
+   through ``build_train_setup`` + ``step_fn`` at full width cut to
+   ``GRAM_DEPTH`` blocks (3 timed steps: ms, img/s, peak, launches pinned a
+   step, every loss finite; one step profiled by kernel class; the Gram
+   branch frozen, then refreshed from the teacher) (M1); a 2-block step
+   with the Gram loss on the card against the CPU (M2, in a process of its
+   own beside M3); the trainer CLI at 1 block with small heads: a fresh
+   run anchored by ``gram.ckpt`` to a checkpoint written here, a refresh
+   after iteration 2, and a resume from its step-2 save, past torn saves,
+   in a new process, held by ``--ref-losses`` and bitwise (M3).
 
 Prints each phase's seconds, the kernel table as one JSON line, the card's name and power
 limit, and as its last line ``{"ok": true, "device": {...}}``. Any
@@ -1324,9 +1343,9 @@ def phase_f() -> None:
 
 def card_vs_cpu_step(label: str, overrides: list, config: str | None = None,
                      batch: dict | None = None, moved_close: float = 0.9,
-                     planted: str | None = None) -> None:
+                     planted: str | None = None, n_blocks: int = 2) -> None:
     """The phase-F pattern under ``config`` (the ViT-L/16 recipe when None)
-    and ``overrides``: a 2-block model at the config's width (4096 prototypes, B=4, LayerScale 1) takes
+    and ``overrides``: an ``n_blocks``-block model at the config's width (4096 prototypes, B=4, LayerScale 1) takes
     one step on the card and one on the CPU from the same weights, batch
     (``batch``, else a synthetic one) and plans (drawn on the host by the
     meta-arch, one a microbatch under ``optim.accum_steps``); loss terms,
@@ -1355,7 +1374,7 @@ def card_vs_cpu_step(label: str, overrides: list, config: str | None = None,
     results = {}
     for dev in ("cuda", "cpu") + (("planted",) if planted else ()):
         setup = build_train_setup(cfg, batch, device="cuda" if dev == "planted" else dev,
-                                  seed=2, n_blocks=2)
+                                  seed=2, n_blocks=n_blocks)
         if plans is None:  # drawn once on the host: both devices take these
             plans = [setup.meta.draw_plan(0, it, mb, None if accum == 1 else j)
                      for j, mb in enumerate(split_microbatches(batch, accum))]
@@ -1369,7 +1388,7 @@ def card_vs_cpu_step(label: str, overrides: list, config: str | None = None,
             state, m = setup.step_fn(state, batch, setup.scalars(it),
                                      plan=plans if accum > 1 else plans[0])
         print(f"[{label}] one step on {dev}: {(time.perf_counter() - t0) * 1e3:.1f} ms; "
-              + ", ".join(f"{k} {m[k]:.4f}" for k in LOSS_KEYS))
+              + ", ".join(f"{k} {v:.4f}" for k, v in m.items() if not k.startswith("grad")))
         after = {n: p.detach().cpu() for n, p in setup.meta.student.named_parameters()}
         results[dev] = (m, before, after)
     (mc, before, after_c), (mp, before_p, after_p) = results["cuda"], results["cpu"]
@@ -1379,7 +1398,8 @@ def card_vs_cpu_step(label: str, overrides: list, config: str | None = None,
     # with matmul sums in other orders, and K1-K3 round the attention
     # probabilities and dS to bf16 where the plain versions keep fp32
     worst = 0.0
-    for k in LOSS_KEYS + tuple(k for k in mc if k.startswith("grad_norm/")):
+    check(mc.keys() == mp.keys(), f"[{label}] card metrics {sorted(mc)} != CPU's {sorted(mp)}")
+    for k in mc:  # the loss terms (the Gram terms under gram.use_loss), the norms
         rel = abs(mc[k] - mp[k]) / max(abs(mp[k]), 1e-6)
         worst = max(worst, rel)
         check(rel <= 2.0 ** -5, f"[{label}] {k}: card {mc[k]:.6g} vs CPU {mp[k]:.6g}")
@@ -1505,10 +1525,28 @@ def teacher_of(run_dir: str, step: int) -> dict:
     return payload["teacher"]
 
 
-def plant_torn_saves(ckpt_dir: str) -> None:
-    """A save cut before its rename (``tmp.3/`` holding a partial payload)
-    and one cut before its marker (``3/`` with a payload, no FINALIZED)."""
-    for d in ("tmp.3", "3"):
+def check_dump(label: str, path: str, result: dict, ckpt: str) -> None:
+    """``--dump-weights``: the flat ``.npz`` of the final student and
+    teacher equals the run's own last checkpoint, bit for bit."""
+    import torch
+
+    dumped = np.load(path)
+    saved = torch.load(ckpt, map_location="cpu", weights_only=True, mmap=True)
+    want = {f"{role}/{n}".replace(".", "/"): t for role in ("student", "teacher")
+            for n, t in saved[role].items()}
+    check(set(dumped.files) == set(want) and result["dump_weights"]["arrays"] == len(want),
+          f"[{label}] dumped names")
+    check(all(np.array_equal(dumped[k], want[k].float().numpy()) for k in want),
+          f"[{label}] the dump differs from the run's checkpoint")
+    print(f"[{label}] --dump-weights: {len(want)} arrays, {result['dump_weights']['bytes']} "
+          f"bytes, equal to the run's last checkpoint bit for bit")
+
+
+def plant_torn_saves(ckpt_dir: str, step: int = 3) -> None:
+    """A save cut before its rename (``tmp.<step>/`` holding a partial
+    payload) and one cut before its marker (``<step>/`` with a payload, no
+    FINALIZED)."""
+    for d in (f"tmp.{step}", str(step)):
         os.makedirs(os.path.join(ckpt_dir, d))
         with open(os.path.join(ckpt_dir, d, "state.pt"), "wb") as f:
             f.write(b"PK\x03\x04 torn payload")
@@ -1518,67 +1556,72 @@ def phase_g(step: dict) -> dict:
     """The trainer CLI at ViT-L/16, B=32 on the card (module docstring)."""
     import torch
 
-    from dinov3_tpu_torch.configs import load_config
-
     gc.collect()
     torch.cuda.empty_cache()  # the children need the card's memory
     shutil.rmtree(G_DIR, ignore_errors=True)
     os.makedirs(G_DIR)
+    from dinov3_tpu_torch.configs import load_config
+
     try:
-        return _phase_g(step, load_config(os.path.join(REPO, CLI_CONFIG),
-                                          TRAIN_OVERRIDES, n_devices=1))
+        return _phase_g(load_config(os.path.join(REPO, CLI_CONFIG), TRAIN_OVERRIDES,
+                                    n_devices=1))
     finally:
         shutil.rmtree(G_DIR, ignore_errors=True)
 
 
-def _phase_g(step: dict, cfg) -> dict:
+def _phase_g(cfg) -> dict:
     from dinov3_tpu_torch.train.schedules import build_schedules
 
-    # first, before the runs that write checkpoints: 12 iterations, the
-    # last 8 timed, one save at the end (after the last mark)
-    bench = run_cli("benchmark", ["--output-dir", os.path.join(G_DIR, "b"),
-                                  "--max-iterations", "12", "--benchmark", "8"],
-                    ["checkpointing.period=100"])
-    check_launches("benchmark", bench, 12)
-    shutil.rmtree(os.path.join(G_DIR, "b"))
+    # 12 iterations, the last 8 timed, a save every 4 (each save's seconds
+    # are kept out of the timed steps); its step-4 checkpoint is phase I's
+    # and the resume's below
     a_dir, r_dir = os.path.join(G_DIR, "a"), os.path.join(G_DIR, "r")
     a_losses = os.path.join(G_DIR, "a.jsonl")
-    a = run_cli("uninterrupted", ["--output-dir", a_dir, "--max-iterations", "4",
-                                  "--benchmark", "2", "--record-losses", a_losses])
-    check_launches("uninterrupted", a, 4)
-    check([s["step"] for s in a["saves"]] == [2, 4], f"[G] saves {a['saves']}")
+    a = run_cli("uninterrupted", ["--output-dir", a_dir, "--max-iterations", "12",
+                                  "--benchmark", "8", "--record-losses", a_losses],
+                ["checkpointing.period=4"])
+    check_launches("uninterrupted", a, 12)
+    check([s["step"] for s in a["saves"]] == [4, 8, 12], f"[G] saves {a['saves']}")
     losses = read_losses(a_losses)
-    check(sorted(losses) == [0, 1, 2, 3] and all(
+    check(sorted(losses) == list(range(12)) and all(
         np.isfinite(v) for r in losses.values() for k, v in r.items() if k != "iteration"),
         f"[G] uninterrupted losses {losses}")
-    r1 = run_cli("to 2", ["--output-dir", r_dir, "--max-iterations", "2"])
-    check_launches("to 2", r1, 2)
-    plant_torn_saves(os.path.join(r_dir, "ckpt"))
-    r_losses = os.path.join(G_DIR, "r.jsonl")
-    r2 = run_cli("resumed to 4", ["--output-dir", r_dir, "--max-iterations", "4",
-                                  "--record-losses", r_losses, "--ref-losses", a_losses])
-    check(r2["start_iteration"] == 2 and r2["iterations"] == 4,
-          f"[G] resumed at {r2['start_iteration']}, not at 2 past the torn saves")
-    check_launches("resumed to 4", r2, 2)
+    # a new process resumes from the step-4 save (linked into its own
+    # directory, beside a torn tmp.5/ and an unfinalized 5/) to 8, and dumps
+    # its final weights (--dump-weights)
+    os.makedirs(os.path.join(r_dir, "ckpt", "4"))
+    for f in os.listdir(os.path.join(a_dir, "ckpt", "4")):
+        os.link(os.path.join(a_dir, "ckpt", "4", f), os.path.join(r_dir, "ckpt", "4", f))
+    plant_torn_saves(os.path.join(r_dir, "ckpt"), 5)
+    r_losses, dump = os.path.join(G_DIR, "r.jsonl"), os.path.join(G_DIR, "w.npz")
+    r = run_cli("resumed to 8", ["--output-dir", r_dir, "--max-iterations", "8",
+                                 "--record-losses", r_losses, "--ref-losses", a_losses,
+                                 "--dump-weights", dump], ["checkpointing.period=4"])
+    check(r["start_iteration"] == 4 and r["iterations"] == 8,
+          f"[G] resumed at {r['start_iteration']}, not at 4 past the torn saves")
+    check_launches("resumed to 8", r, 4)
     # resumed losses against the uninterrupted run's: the CLI's own
     # comparator, |err| <= 1e-4 + 1e-3 |recorded| (index_add on the card
     # sums with atomics, so the runs need not be bitwise equal)
     resumed = read_losses(r_losses)
-    diffs = [abs(resumed[i][k] - losses[i][k]) for i in (2, 3) for k in resumed[i]
+    diffs = [abs(resumed[i][k] - losses[i][k]) for i in range(4, 8) for k in resumed[i]
              if k != "iteration"]
-    print(f"[G] resumed vs uninterrupted losses at iterations 2-3: largest "
+    print(f"[G] resumed vs uninterrupted losses at iterations 4-7: largest "
           f"|difference| {max(diffs):.3e}, bitwise {max(diffs) == 0.0}; "
-          f"{r2['loss_comparison']}")
-    check(sorted(resumed) == [2, 3] and r2["loss_divergences"] == 0,
-          f"[G] resumed losses diverge: {r2['loss_comparison']}")
-    # the final teacher: from the same start the EMA moves each entry by
-    # (1 - m) of the student's update; an Adam update whose gradient is at
-    # noise level can go either way (|update| <= 2 lr in these first
-    # steps), so the runs may differ by sum (1 - m) 4 lr, plus 1e-5 of
-    # each tensor's largest magnitude
+          f"{r['loss_comparison']}")
+    check(sorted(resumed) == [4, 5, 6, 7] and r["loss_divergences"] == 0,
+          f"[G] resumed losses diverge: {r['loss_comparison']}")
+    # the final teacher: from the same start each resumed step's AdamW
+    # update of an entry may differ by 4 lr (an update whose gradient is at
+    # noise level can go either way, |update| <= 2 lr in these first
+    # steps), so the students by the sum of those up to a step, and the EMA
+    # takes (1 - m) of that difference each step; plus 1e-5 of each
+    # tensor's largest magnitude
     sched = build_schedules(cfg)
-    drift = sum((1 - float(sched.momentum[i])) * 4 * float(sched.lr[i]) for i in range(4))
-    ta, tr = teacher_of(a_dir, 4), teacher_of(r_dir, 4)
+    lr = [float(sched.lr[i]) for i in range(4, 8)]
+    mom = [1 - float(sched.momentum[i]) for i in range(4, 8)]
+    drift = sum(m * 4 * sum(lr[:j + 1]) for j, m in enumerate(mom))
+    ta, tr = teacher_of(a_dir, 8), teacher_of(r_dir, 8)
     worst, worst_ratio, same = 0.0, 0.0, True
     for n, w in ta.items():
         err = (tr[n] - w).abs().max().item()
@@ -1589,12 +1632,13 @@ def _phase_g(step: dict, cfg) -> dict:
     print(f"[G] final teacher, resumed vs uninterrupted: largest |difference| "
           f"{worst:.3e} ({worst_ratio:.3f} of its tolerance), bitwise {same}")
     del ta, tr
-    # the uninterrupted run's step-4 checkpoint is phase I's to evaluate
+    check_dump("G", dump, r, os.path.join(r_dir, "ckpt", "8", "state.pt"))
     shutil.rmtree(I_DIR, ignore_errors=True)
     os.makedirs(I_CKPT)
     os.rename(os.path.join(a_dir, "ckpt", "4"), os.path.join(I_CKPT, "4"))
     shutil.rmtree(a_dir)
     shutil.rmtree(r_dir)
+    os.remove(dump)
 
     sc = run_cli("self-check", ["--output-dir", os.path.join(G_DIR, "s"), "--self-check"])
     failed = [k for k, v in sc.items() if k.startswith("check/") and not v]
@@ -1620,9 +1664,8 @@ def _phase_g(step: dict, cfg) -> dict:
     check(np.isfinite(folder["final_loss"]), f"[G] folder run loss {folder['final_loss']}")
 
     print(f"[G] CLI --benchmark at {CLI_DEPTH} blocks: {a['img_per_sec']:.2f} img/s "
-          f"({a['ms_per_step']:.1f} ms a step over 2 steps), {bench['img_per_sec']:.2f} "
-          f"img/s ({bench['ms_per_step']:.1f} ms over 8 steps)")
-    return {"uninterrupted": a, "benchmark": bench, "resumed": r2}
+          f"({a['ms_per_step']:.1f} ms a step over 8 steps)")
+    return {"uninterrupted": a, "benchmark": a, "resumed": r}
 
 
 # ---------------------------------------------------------------- phase H
@@ -2776,8 +2819,8 @@ def phase_k1() -> dict:
     """The ViT-g/14 recipe through the trainer CLI at full width and depth
     from web shards written here: 11 iterations at B=16 (3-5 profiled, the
     step anatomy of phase L1; 7-10 timed, after the profiler's window; one
-    save at the end), then a new process resuming from that save for a
-    12th; launches pinned a step, losses finite."""
+    save at the end); launches pinned a step, losses finite. The resumes
+    in a new process run in phases G and M3."""
     t0 = time.perf_counter()
     shards = os.path.join(K_DIR, "shards")
     nbytes = write_web_shards(shards)
@@ -2800,37 +2843,27 @@ def phase_k1() -> dict:
     check(sorted(rec) == list(range(VITG_ITERS)) and all(
         np.isfinite(v) for r in rec.values() for v in r.values()), f"[K] losses {rec}")
     a["l1"] = phase_l1(run, a)
-    b = run_cli("vitg14 recipe resumed", ["--output-dir", run,
-                                          "--max-iterations", str(VITG_ITERS + 1)],
-                base=base, label="K", log_dir=K_DIR, config=VITG_CONFIG, timeout=600)
-    check(b["start_iteration"] == VITG_ITERS and b["iterations"] == VITG_ITERS + 1
-          and np.isfinite(b["final_loss"]), f"[K] resume {b}")
-    check(b["launches"] == VITG_LAUNCHES, f"[K] resumed launches {b['launches']}")
     print(f"[K] K1 ViT-g/14 at B={VITG_B}: {a['ms_per_step']:.1f} ms a step, "
           f"{a['img_per_sec']:.2f} img/s, peak {a['peak_memory_gib']:.2f} GiB; save "
-          f"{a['saves'][0]['bytes']} bytes in {a['saves'][0]['seconds']:.1f} s, restore "
-          f"{b['restore_s']:.1f} s; losses at iteration {VITG_ITERS - 1}: "
+          f"{a['saves'][0]['bytes']} bytes in {a['saves'][0]['seconds']:.1f} s; losses at "
+          f"iteration {VITG_ITERS - 1}: "
           + ", ".join(f"{k} {rec[VITG_ITERS - 1][k]:.4f}" for k in LOSS_KEYS))
     shutil.rmtree(run)
-    return {**a, "resumed": b}
+    return a
 
 
 def phase_k2() -> None:
-    """The options this slice lifts, each in a card step against the CPU
+    """The options the ViT-g slice lifted, in card steps against the CPU
     on a 2-block model at ViT-g width with 2 images (the phase-F pattern):
-    RoPE coordinate augmentation; the two-pass student with
-    ``rng.plan=false`` and RoPE augmentation; the second entry of a
-    two-entry crop-size list (a 252 px batch of its combined stream; the
-    first entry, 224 px, is the other arms' shape). Then ``--dump-weights``
-    through the CLI on the card, the dump held against the run's own
-    checkpoint."""
-    import torch
-
+    the two-pass student with ``rng.plan=false`` and RoPE coordinate
+    augmentation; the crop-packed student with RoPE augmentation on the
+    second entry of a two-entry crop-size list (a 252 px batch of its
+    combined stream; the first entry, 224 px, is the other arm's shape).
+    ``--dump-weights`` runs in phase G's resumed run (``check_dump``)."""
     from dinov3_tpu_torch.configs import load_config
     from dinov3_tpu_torch.train.train import build_data_iterator
 
     vitg = VITG_OVERRIDES + ["data.backend=synthetic", "train.batch_size_per_device=2"]
-    card_vs_cpu_step("K2 rope", vitg + ROPE_AUG, config=VITG_CONFIG)
     card_vs_cpu_step("K2 two-pass, rng.plan=false", vitg + ROPE_AUG + [
         "model.crop_packing=false", "rng.plan=false"], config=VITG_CONFIG)
     lists = ["crops.global_crops_size=[224,252]", "crops.local_crops_size=[98,112]"]
@@ -2843,25 +2876,9 @@ def phase_k2() -> None:
         stream.close()
     sizes = [b["global_crops"].shape[1] for b in batches]
     check(set(sizes) == {224, 252}, f"[K] crop-size list gave sizes {sizes}")
-    card_vs_cpu_step("K2 list, 252 px", vitg + lists, config=VITG_CONFIG,
+    # RoPE augmentation with the packed student, on the list's second entry
+    card_vs_cpu_step("K2 list, 252 px, rope", vitg + ROPE_AUG + lists, config=VITG_CONFIG,
                      batch=next(b for b in batches if b["global_crops"].shape[1] == 252))
-    d = os.path.join(K_DIR, "dump")
-    r = run_cli("--dump-weights", ["--output-dir", d, "--max-iterations", "1",
-                                   "--dump-weights", os.path.join(d, "w.npz")],
-                base=VITG_OVERRIDES + VITG_SMALL + [
-                    "data.backend=synthetic", "+student.n_blocks=2", "checkpointing.period=1"],
-                label="K", log_dir=K_DIR, config=VITG_CONFIG, timeout=300)
-    dumped = np.load(os.path.join(d, "w.npz"))
-    saved = torch.load(os.path.join(d, "ckpt", "1", "state.pt"), map_location="cpu",
-                       weights_only=True)
-    want = {f"{role}/{n}".replace(".", "/"): t for role in ("student", "teacher")
-            for n, t in saved[role].items()}
-    check(set(dumped.files) == set(want) and r["dump_weights"]["arrays"] == len(want),
-          "[K] dumped names")
-    check(all(np.array_equal(dumped[k], want[k].float().numpy()) for k in want),
-          "[K] the dump differs from the run's checkpoint")
-    print(f"[K] K2 --dump-weights: {len(want)} arrays, {r['dump_weights']['bytes']} "
-          f"bytes, equal to the step-1 checkpoint bit for bit")
 
 
 def meta_state_dict(port_sd: dict) -> dict:
@@ -3426,6 +3443,335 @@ def phase_l() -> dict:
         shutil.rmtree(L_DIR, ignore_errors=True)
 
 
+# ---------------------------------------------------------------- phase M
+
+M_DIR = os.path.join(REPO, "build", "phase_m")
+GRAM_CONFIG = os.path.join("configs", "train", "vit7b16_gram_anchor.yaml")
+# the recipe's images a step on one card (train.batch_size_per_device)
+GRAM_B = 16
+# ViT-7B/16 (configs/train/vit7b16_gram_anchor.yaml): 4096 wide, 32 heads
+# of 128, patch 16, 4 registers; 256 px globals (1 + 4 + 256 = 261
+# tokens), 112 px locals (1 + 4 + 49 = 54) packed 4 to a row, 512 px Gram
+# teacher crops (1 + 4 + 1024 = 1029), their 32 x 32 grid resized onto 16 x 16
+GRAM_N, GRAM_N_LOCAL, GRAM_N_TEACHER, GRAM_H, GRAM_D = 261, 54, 1029, 32, 4096
+# the one-card overrides of the recipe: no FSDP mesh (ROADMAP M7), synthetic data
+GRAM_OVERRIDES = ["parallel.fsdp=1", "data.backend=synthetic"]
+# the step's depth at full width: the fp32 student, its gradient, Adam's
+# moments, the EMA teacher and the Gram copy take 24 B a parameter, ~4 GB a
+# 168 M-parameter block, so the 40 blocks do not fit one 80 GB card; this
+# is the deepest cut whose step stays under ~70 GB (PERF.md §4)
+GRAM_DEPTH = 11
+# the CLI runs of M3: one refresh, after iteration 2 (between the step-2
+# save, which then holds the Gram branch loaded from gram.ckpt, and the
+# step-4 save); at GRAM_CLI_DEPTH block with small heads (4096 prototypes,
+# hidden width 2048): a save (student, teacher, moments, Gram branch) is
+# 3.9 GB. At 4 blocks it is 14.0 GB, and M3's four (the anchor's, 2 and 4
+# of the uninterrupted run, 4 of the resumed one) take 53 GB of the
+# card's machine's disk, past the 45 GiB that a run there may write
+# (PERF.md §7); phase G holds the resume at 4 blocks of ViT-L
+GRAM_CADENCE = ["gram.it_first_update=3", "gram.update_frequency=3", "gram.max_updates=1"]
+GRAM_CLI_DEPTH = 1
+GRAM_CLI_SMALL = ["dino.head_n_prototypes=4096", "ibot.head_n_prototypes=4096",
+                  "dino.head_hidden_dim=2048", "ibot.head_hidden_dim=2048"]
+
+
+def gram_launches(depth: int) -> dict:
+    """K1-K5 launches of one step of the recipe at ``depth`` blocks under
+    its ``blocks`` remat: K1 once a block in the teacher, the Gram teacher,
+    the student and its recompute; K4 twice a block in each of those, plus
+    the prefix and patch norms of the teacher and the Gram teacher (untied
+    CLS norms) and the student's three final norms; K2, K3 once a student
+    block; K5 once a student K4 launch."""
+    return {"K1": 4 * depth, "K2": depth, "K3": depth, "K4": 8 * depth + 7,
+            "K5": 2 * depth + 3}
+
+
+def gram_attention_seg(depth: int = GRAM_DEPTH, rate: float = 0.4):
+    """The seg plane one ViT-7B student block's attention sees (the packed
+    layout's ids of 2B global rows of 261 tokens and 4 local crops of 54 a
+    packed row, at the kept rows of a drop-path subset of the port's plan)
+    and the layout."""
+    from dinov3_tpu_torch.ops.packing import make_packed_layout, packed_segment_ids
+    from dinov3_tpu_torch.rng import packed_pass_plan, step_generator
+
+    layout = make_packed_layout(n_global_rows=2 * GRAM_B, n_local=8 * GRAM_B,
+                                seq_global=GRAM_N, seq_local=GRAM_N_LOCAL, n_prefix=5)
+    plan = packed_pass_plan(step_generator(0, 0), depth, layout.rows_total, rate)
+    return packed_segment_ids(layout)[plan["drop_path"]["idx"][0, 0].numpy()], layout
+
+
+def phase_m() -> dict:
+    """The Gram anchor at ViT-7B width on one card (module docstring)."""
+    import torch
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    shutil.rmtree(M_DIR, ignore_errors=True)
+    os.makedirs(M_DIR)
+    m2 = None
+    try:
+        out = {}
+        for name, fn in (("M0", phase_m0), ("M1", phase_m1)):
+            t0 = time.perf_counter()
+            out[name] = fn()
+            print(f"[M] {name} {time.perf_counter() - t0:.1f} s")
+            gc.collect()
+            torch.cuda.empty_cache()
+        # M2's CPU half takes ~50 s of the host's cores and M3's children
+        # wait mostly on the disk: M2 runs in a process of its own beside M3
+        t0 = time.perf_counter()
+        m2 = subprocess.Popen([sys.executable, os.path.abspath(__file__), M2_CHILD],
+                              cwd=REPO, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                              text=True)
+        out["M3"] = phase_m3()
+        print(f"[M] M3 {time.perf_counter() - t0:.1f} s")
+        m2_out, _ = m2.communicate(timeout=600)
+        print(m2_out.rstrip())
+        check(m2.returncode == 0, f"[M] M2 exit {m2.returncode}")
+        print(f"[M] M2 and M3 {time.perf_counter() - t0:.1f} s")
+        return out
+    finally:
+        if m2 is not None and m2.poll() is None:
+            m2.kill()
+            m2.wait()
+        shutil.rmtree(M_DIR, ignore_errors=True)
+
+
+def phase_m0() -> dict:
+    """K1-K5 against their plain versions at the recipe's head_dim-128 and
+    D = 4096 shapes: one student block's packed rows with ids (K1, K2,
+    K3), the teacher's [2B x 32, 261, 128] and the Gram teacher's [2B x
+    32, 1029, 128] with no ids (K1); the LayerNorms' general path at D =
+    4096 (K4 on a student block's rows, the teacher's and the Gram
+    teacher's; K5 on a block's rows and all packed rows)."""
+    import torch
+
+    from dinov3_tpu_torch.ops.fused_norm import layernorm_vec_path
+
+    dev = torch.device("cuda")
+    g = torch.Generator().manual_seed(13)
+    bf16 = torch.bfloat16
+    H, D = GRAM_H, GRAM_D // GRAM_H
+
+    def randn(*shape, dtype=bf16):
+        return torch.randn(*shape, generator=g).to(dev, dtype)
+
+    def qkv_views(rows, n):
+        qkv = randn(rows, n, 3 * H * D)
+        q, k, v = (qkv[..., i * H * D:(i + 1) * H * D].reshape(rows, n, H, D)
+                   for i in range(3))
+        return q.contiguous(), k.contiguous(), v
+
+    seg_np, layout = gram_attention_seg()
+    seg = torch.from_numpy(seg_np).to(dev)
+    out = {k: {} for k in ("K1", "K2", "K3", "K4", "K5")}
+    R = seg.shape[0]
+    q, k, v = qkv_views(R, GRAM_N)
+    label = f"ViT-7B student block [{R}x{H}, {GRAM_N}, {D}] bf16 seg"
+    out["K1"]["student"] = check_flash(q, k, v, seg, label, time_it=True)
+    bwd = check_flash_bwd(q, k, v, seg, label, time_it=True)
+    out["K2"]["student"], out["K3"]["student"] = bwd["K2"], bwd["K3"]
+    del q, k, v
+    for name, n in (("teacher", GRAM_N), ("gram teacher", GRAM_N_TEACHER)):
+        q, k, v = qkv_views(2 * GRAM_B, n)
+        out["K1"][name] = check_flash(q, k, v, None, f"ViT-7B {name} [{2 * GRAM_B}x{H}, "
+                                      f"{n}, {D}] bf16 no seg", time_it=True)
+        del q, k, v
+    vec = layernorm_vec_path(GRAM_D, bf16, (0, 0, 0, 0))
+    print(f"[M] K4/K5 at D = {GRAM_D} in bf16: "
+          + (f"vector path with {vec} vectors a lane" if vec else "general path"))
+    check(vec == 0, f"[M] D = {GRAM_D}: vector path {vec}, not the general path")
+    s, b = (torch.randn(GRAM_D, generator=g) * 0.5 + 1).to(dev), torch.randn(
+        GRAM_D, generator=g).to(dev)
+    for name, rows in (("student block", R * GRAM_N), ("teacher", 2 * GRAM_B * GRAM_N),
+                       ("gram teacher", 2 * GRAM_B * GRAM_N_TEACHER)):
+        out["K4"][name] = check_layernorm(
+            randn(rows, GRAM_D) * 3 + 1, s, b,
+            f"ViT-7B {name} [{rows}, {GRAM_D}] bf16, fp32 params", time_it=True)
+    p_rows = layout.rows_total * GRAM_N
+    for name, rows in (("student block", R * GRAM_N), ("packed rows", p_rows)):
+        out["K5"][name] = check_layernorm_bwd(
+            randn(rows, GRAM_D) * 3 + 1, s,
+            f"ViT-7B {name} [{rows}, {GRAM_D}] bf16, fp32 scale", time_it=True)
+    check_layernorm(randn(77, GRAM_D, dtype=torch.float32), s, b, f"[77, {GRAM_D}] fp32")
+    check_layernorm_bwd(randn(77, GRAM_D, dtype=torch.float32), s, f"[77, {GRAM_D}] fp32")
+    return out
+
+
+def phase_m1() -> dict:
+    """The recipe's step (``vit7b16_gram_anchor.yaml`` with
+    ``GRAM_OVERRIDES``: B=16, 2 x 16 Gram teacher crops of 512 px,
+    262,144 / 98,304 prototypes, ``blocks`` remat) at full width, cut to
+    ``GRAM_DEPTH`` blocks, through ``build_train_setup`` + ``step_fn``: a
+    warm-up step, 3 timed steps with every loss finite, the launches
+    pinned a step, one step profiled by kernel class, the Gram branch
+    untouched by the steps; then one refresh, after which the Gram branch
+    is the teacher's backbone."""
+    import torch
+
+    from dinov3_tpu_torch.configs import load_config
+    from dinov3_tpu_torch.data import make_synthetic_batch
+    from dinov3_tpu_torch.train import build_train_setup, put_batch
+    from dinov3_tpu_torch.train.gram_refresh import refresh_gram
+
+    cfg = load_config(os.path.join(REPO, GRAM_CONFIG), GRAM_OVERRIDES, n_devices=1)
+    batch = make_synthetic_batch(cfg, GRAM_B, seed=0)
+    check(batch["gram_teacher_crops"].shape == (2 * GRAM_B, 512, 512, 3)
+          and batch["global_crops"].shape == (2 * GRAM_B, 256, 256, 3),
+          f"[M] batch {[(k, v.shape) for k, v in batch.items()]}")
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    setup = build_train_setup(cfg, batch, device="cuda", seed=0, n_blocks=GRAM_DEPTH)
+    setup_s = time.perf_counter() - t0
+    meta = setup.meta
+    check(meta.gram is not None and meta.student["backbone"].remat == "blocks"
+          and meta.student["backbone"].embed_dim == GRAM_D,
+          "[M] the step did not resolve a frozen Gram branch under blocks remat at 4096")
+    n_params = {k: sum(p.numel() for p in getattr(meta, k).parameters())
+                for k in ("student", "teacher", "gram")}
+    print(f"[M] M1 set-up {setup_s:.1f} s at {GRAM_DEPTH} blocks: parameters {n_params}, "
+          f"{torch.cuda.memory_allocated() / 2 ** 30:.2f} GiB held")
+    dbatch = put_batch(batch, "cuda")  # data loading is set-up
+    state = setup.state
+    gram_before = meta.gram["backbone"].blocks[0].attn.qkv.weight.clone()
+    t0 = time.perf_counter()
+    state, m = setup.step_fn(state, dbatch, setup.scalars(0))
+    torch.cuda.synchronize()
+    print(f"[M] M1 warm-up step {(time.perf_counter() - t0) * 1e3:.1f} ms")
+    reset_counts()
+    times, steps = [], 3
+    for i in range(1, steps + 1):
+        t0 = time.perf_counter()
+        state, m = setup.step_fn(state, dbatch, setup.scalars(i))
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+        check(all(np.isfinite(v) for v in m.values()), f"[M] step {i}: {m}")
+    launches = read_counts()
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    per_step = {k: v / steps for k, v in launches.items()}
+    want = gram_launches(GRAM_DEPTH)
+    check(per_step == want, f"[M] launches a step {per_step} != {want}")
+    check(m["gram_loss"] > 0 and m["gram_loss_weight"] == 1.0, f"[M] Gram terms {m}")
+    profile = profile_step(setup, state, batch, label="M1")
+    check(torch.equal(meta.gram["backbone"].blocks[0].attn.qkv.weight, gram_before),
+          "[M] the steps moved the frozen Gram branch")
+    refresh_gram(state)
+    teacher = meta.teacher["backbone"].state_dict()
+    check(all(torch.equal(v, teacher[k]) for k, v in meta.gram["backbone"].state_dict().items()),
+          "[M] the refreshed Gram branch differs from the teacher's backbone")
+    median = float(np.median(times))
+    print(f"[M] M1 ViT-7B/16 Gram anchor at {GRAM_DEPTH} blocks, B={GRAM_B}: {steps} steps "
+          f"median {median:.1f} ms (" + ", ".join(f"{t:.1f}" for t in times)
+          + f"), {GRAM_B / median * 1e3:.2f} img/s, peak {peak:.2f} GiB; launches a step "
+          f"{per_step}; losses at step {steps}: "
+          + ", ".join(f"{k} {v:.4f}" for k, v in m.items() if not k.startswith("grad")))
+    check(peak < 75.0, f"[M] peak {peak:.2f} GiB at {GRAM_DEPTH} blocks")
+    del setup, state, meta, dbatch, teacher
+    return {"launches": launches, "per_step": per_step, "median_ms": median,
+            "step_ms": times, "peak_gib": peak, "setup_s": setup_s, "profile": profile,
+            "losses": {k: v for k, v in m.items() if not k.startswith("grad")}}
+
+
+# the argument that runs phase M2 alone (phase M starts it beside M3)
+M2_CHILD = "--phase-m2"
+
+
+def phase_m2() -> None:
+    """One step of a 2-block model at ViT-7B width with the Gram loss on
+    (2 images, 512 px Gram crops resized onto the 16 x 16 grid, 4096
+    prototypes, LayerScale 1) on the card and on the CPU, compared as
+    phase F compares (the Gram terms with the other losses). Runs in a
+    process of its own (``M2_CHILD``), beside M3."""
+    card_vs_cpu_step("M2 Gram anchor", GRAM_OVERRIDES + [
+        "train.batch_size_per_device=2"], config=GRAM_CONFIG)
+
+
+def phase_m3() -> dict:
+    """The trainer CLI on the recipe at full width cut to ``GRAM_CLI_DEPTH``
+    block with ``GRAM_CLI_SMALL``'s heads, B=16: a fresh run whose
+    ``gram.ckpt`` names a checkpoint written here (another seed's state,
+    without a Gram branch, as a pretraining run's), 4 iterations saving at
+    2 and 4 with a refresh after iteration 2 (``GRAM_CADENCE``): its step-2
+    save holds that checkpoint's EMA teacher backbone as the Gram branch,
+    bit for bit; then a new process resuming from that save (linked into
+    its own directory, beside a torn ``tmp.3/`` and an unfinalized ``3/``)
+    across the refresh to 4, its losses held by the CLI's ``--ref-losses``
+    comparator and, with its final student, teacher, moments and Gram
+    branch, equal to the uninterrupted run's bit for bit, the branch
+    refreshed. Launches pinned a step, losses finite."""
+    import torch
+
+    from dinov3_tpu_torch.checkpoint import Checkpointer
+    from dinov3_tpu_torch.configs import load_config
+    from dinov3_tpu_torch.data import make_synthetic_batch
+    from dinov3_tpu_torch.train import build_train_setup
+
+    small = GRAM_OVERRIDES + GRAM_CLI_SMALL + [f"+student.n_blocks={GRAM_CLI_DEPTH}"]
+    anchor = os.path.join(M_DIR, "anchor")
+    cfg = load_config(os.path.join(REPO, GRAM_CONFIG), small + ["gram.use_loss=false"],
+                      n_devices=1)
+    src = build_train_setup(cfg, make_synthetic_batch(cfg, 2, seed=3), device="cuda", seed=7)
+    check(src.meta.gram is None, "[M] M3 the anchor's run has a Gram branch")
+    saved = Checkpointer(anchor).save(1, src.state)
+    anchor_teacher = {k: v.detach().cpu() for k, v in
+                      src.meta.teacher["backbone"].state_dict().items()}
+    del src
+    gc.collect()
+    torch.cuda.empty_cache()  # the children need the card's memory
+    print(f"[M] M3 anchor checkpoint (seed 7, no Gram branch): {saved['bytes']} bytes in "
+          f"{saved['seconds']:.1f} s")
+    base = small + GRAM_CADENCE + ["checkpointing.period=2"]
+    kw = dict(base=base, label="M", log_dir=M_DIR, config=GRAM_CONFIG, timeout=400)
+    want = gram_launches(GRAM_CLI_DEPTH)
+    a_dir, r_dir = os.path.join(M_DIR, "a"), os.path.join(M_DIR, "r")
+    a = run_cli("gram anchor uninterrupted", [
+        "--output-dir", a_dir, "--max-iterations", "4",
+        "--record-losses", os.path.join(M_DIR, "a.jsonl")],
+        overrides=[f"gram.ckpt={anchor}"], **kw)
+    check(a["gram"] == "frozen" and [s["step"] for s in a["saves"]] == [2, 4]
+          and a["launches"] == {k: 4 * v for k, v in want.items()}, f"[M] M3 run {a}")
+
+    def payload(d, step):
+        return torch.load(os.path.join(d, "ckpt", str(step), "state.pt"),
+                          map_location="cpu", weights_only=True, mmap=True)
+
+    a2 = payload(a_dir, 2)
+    check(a2["gram"].keys() == {f"backbone.{k}" for k in anchor_teacher}
+          and all(torch.equal(a2["gram"][f"backbone.{k}"], v) for k, v in anchor_teacher.items()),
+          "[M] M3 the Gram branch loaded from gram.ckpt differs from the anchor's teacher")
+    os.makedirs(os.path.join(r_dir, "ckpt", "2"))
+    for f in os.listdir(os.path.join(a_dir, "ckpt", "2")):
+        os.link(os.path.join(a_dir, "ckpt", "2", f), os.path.join(r_dir, "ckpt", "2", f))
+    plant_torn_saves(os.path.join(r_dir, "ckpt"))  # the resume must pass them
+    r = run_cli("gram anchor resumed", ["--output-dir", r_dir, "--max-iterations", "4",
+                                        "--record-losses", os.path.join(M_DIR, "r.jsonl"),
+                                        "--ref-losses", os.path.join(M_DIR, "a.jsonl")],
+                overrides=[f"gram.ckpt={anchor}"], **kw)
+    check(r["start_iteration"] == 2 and r["iterations"] == 4
+          and r["launches"] == {k: 2 * v for k, v in want.items()}, f"[M] M3 resume {r}")
+    check(r["loss_divergences"] == 0, f"[M] M3 resumed losses diverge: {r['loss_comparison']}")
+    whole, resumed = read_losses(os.path.join(M_DIR, "a.jsonl")), read_losses(
+        os.path.join(M_DIR, "r.jsonl"))
+    check(sorted(resumed) == [2, 3] and all(resumed[i] == whole[i] for i in resumed),
+          "[M] M3 the resumed losses differ from the uninterrupted run's")
+    check(all(np.isfinite(v) for row in whole.values() for v in row.values())
+          and all(whole[i]["gram_loss"] > 0 for i in whole), f"[M] M3 losses {whole}")
+    wa, wr = payload(a_dir, 4), payload(r_dir, 4)
+    for key in ("student", "teacher", "mu", "nu", "gram"):
+        check(wa[key].keys() == wr[key].keys()
+              and all(torch.equal(wa[key][n], wr[key][n]) for n in wa[key]),
+              f"[M] M3 resumed {key} differs from the uninterrupted run's")
+    check(not torch.equal(wa["gram"]["backbone.cls_token"], a2["gram"]["backbone.cls_token"]),
+          "[M] M3 no refresh between the step-2 and step-4 saves")
+    print(f"[M] M3 CLI, {GRAM_CLI_DEPTH}-block cut: gram.ckpt loaded the anchor's teacher "
+          f"bitwise; refresh after iteration 2; resume from step 2 past torn saves in a new "
+          f"process bitwise (losses, student, teacher, moments, Gram branch); save "
+          f"{a['saves'][-1]['bytes']} bytes in {a['saves'][-1]['seconds']:.1f} s, restore "
+          f"{r['restore_s']:.1f} s")
+    del a2, wa, wr
+    return {"uninterrupted": a, "resumed": r}
+
+
 def main() -> int:
     import torch
 
@@ -3439,6 +3785,11 @@ def main() -> int:
 
     resolve_device("cuda")
     KERNELS.update(_kernels())
+    if sys.argv[1:] == [M2_CHILD]:  # phase M's M2, beside M3
+        t0 = time.perf_counter()
+        phase_m2()
+        print(f"[M] M2 {time.perf_counter() - t0:.1f} s")
+        return 0
     cfg = load_config(os.path.join(REPO, "configs", "train", "vitl16_im1k.yaml"))
     t_start = time.perf_counter()
     seconds = {}
@@ -3465,6 +3816,7 @@ def main() -> int:
     ev = timed("I", phase_i, cfg, g["benchmark"]["step_ms"])
     vitg = timed("K", phase_k)
     lp = timed("L", phase_l)
+    gram = timed("M", phase_m)
     print(f"[smoke] all phases passed in {time.perf_counter() - t_start:.1f} s: "
           + ", ".join(f"{k} {v:.1f}" for k, v in seconds.items()))
     for key in ("K1", "K4"):
@@ -3472,6 +3824,7 @@ def main() -> int:
     rows["K1"]["oracle_shapes"] = serving["k1_oracle"]
     for key in KERNELS:
         rows[key]["vitg_shapes"] = vitg["rows"][key]
+        rows[key]["vit7b_shapes"] = gram["M0"][key]
 
     table = []
     for key, name, source, replaces in (
@@ -3490,25 +3843,30 @@ def main() -> int:
         table.append({
             "name": name, "route": "cuda", "source": source,
             "replaces": replaces,
-            # the counted runs of the seven paths: 3 serve packs (phase C),
+            # the counted runs of the eight paths: 3 serve packs (phase C),
             # 5 training steps (phase E), the trainer CLI's uninterrupted
-            # 4-iteration run (phase G at CLI_DEPTH blocks, counted in its
+            # 12-iteration run (phase G at CLI_DEPTH blocks, counted in its
             # own process), 5
             # steps of the recipe as written (phase H1), 4 feature
             # batches of the eval path (phase I1), the serving plane's
             # three measured arms (phase J1), the ViT-g/14 recipe's 11
-            # CLI iterations (phase K1, in its own process) and the
-            # recipe's 5 timed steps in bf16, fp8 and int8 (phase L2)
+            # CLI iterations (phase K1, in its own process), the recipe's
+            # 5 timed steps in bf16, fp8 and int8 (phase L2), the ViT-7B
+            # Gram anchor's 3 timed steps (phase M1) and its CLI's
+            # uninterrupted 4 iterations (phase M3, in its own process)
             "launches": (serve_launches[key] + train_launches[key] + cli["launches"][key]
                          + recipe["launches"][key] + ev["launches"][key]
                          + serving["launches"][key] + vitg["cli"]["launches"][key]
-                         + sum(lp["L2"][arm]["launches"][key] for arm in lp["L2"])),
+                         + sum(lp["L2"][arm]["launches"][key] for arm in lp["L2"])
+                         + gram["M1"]["launches"][key]
+                         + gram["M3"]["uninterrupted"]["launches"][key]),
+            "launches_per_vit7b_gram_step": gram["M1"]["per_step"][key],
             "launches_per_recipe_step_fp8": lp["L2"]["fp8"]["per_step"][key],
             "launches_per_recipe_step_int8": lp["L2"]["int8"]["per_step"][key],
             "launches_serving_plane": serving["launches"][key],
             "launches_per_serve_pack": serve_launches[key] / packs,
             "launches_per_train_step": train_launches[key] / 5,
-            "launches_per_cli_iteration": cli["launches"][key] / 4,
+            "launches_per_cli_iteration": cli["launches"][key] / cli["iterations"],
             "launches_per_recipe_step": recipe["per_step"][key],
             "launches_per_eval_batch": ev["launches"][key] / ev["batches"],
             "launches_per_vitg_step": vitg["cli"]["launches"][key] / VITG_ITERS,
@@ -3516,7 +3874,8 @@ def main() -> int:
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
             "bound_by": r["bound_by"], "library_ms": r["library_ms"],
             **{k: r[k] for k in ("cold_ms", "visited_share", "walked_share", "train_shapes",
-                                 "eval_shapes", "oracle_shapes", "vitg_shapes") if k in r},
+                                 "eval_shapes", "oracle_shapes", "vitg_shapes",
+                                 "vit7b_shapes") if k in r},
         })
     print(f"[smoke] train step {step['ms']:.1f} ms, "
           f"{TRAIN_B / step['ms'] * 1e3:.2f} img/s, peak {step['peak_gib']:.2f} GiB; "
@@ -3528,7 +3887,10 @@ def main() -> int:
           f"{vitg['cli']['ms_per_step']:.1f} ms a step, {vitg['cli']['img_per_sec']:.2f} img/s, "
           f"peak {vitg['cli']['peak_memory_gib']:.2f} GiB; the recipe in fp8 "
           f"{lp['L2']['fp8']['median_ms']:.1f} ms, int8 {lp['L2']['int8']['median_ms']:.1f} ms "
-          f"(bf16 {lp['L2']['bf16']['median_ms']:.1f} ms)")
+          f"(bf16 {lp['L2']['bf16']['median_ms']:.1f} ms); the ViT-7B/16 Gram anchor "
+          f"(B={GRAM_B}, {GRAM_DEPTH} blocks) {gram['M1']['median_ms']:.1f} ms a step, "
+          f"{GRAM_B / gram['M1']['median_ms'] * 1e3:.2f} img/s, peak "
+          f"{gram['M1']['peak_gib']:.2f} GiB")
     print(json.dumps({"kernels": table}))
     print(smi_line())
     print(json.dumps({"ok": True, "device": {

@@ -3,8 +3,9 @@
 write-then-finalize discipline).
 
 A save of step n writes ``<dir>/tmp.<n>/state.pt`` (``torch.save`` of the
-student, the EMA teacher, the Adam moments, the softmax-centering centers,
-the fp8/int8 amax rings, the update count and the step, all on the host), flushes and ``fsync``s it, then writes and ``fsync``s a
+student, the EMA teacher, the frozen Gram teacher, the Adam moments, the
+softmax-centering centers, the fp8/int8 amax rings, the update count and
+the step, all on the host), flushes and ``fsync``s it, then writes and ``fsync``s a
 ``FINALIZED`` marker holding the step and the payload's byte count, and
 only then renames the directory to ``<dir>/<n>/``. ``latest_step``
 announces a digit directory only when its marker parses, names that step
@@ -17,7 +18,8 @@ plus every ``keep_every``-th. Saving is synchronous.
 (``<dir>/<n>/state.npz`` keyed by the ``jax.tree_util.keystr`` paths of
 its ``TrainState``, the centers included) through ``interop/from_jax.py``;
 it needs neither JAX nor ``ml_dtypes``. ``teacher_backbone_state_dict``
-reads only the EMA teacher's backbone from either kind (evals, serving).
+reads only the EMA teacher's backbone from either kind (evals, serving,
+``gram.ckpt``).
 The JAX package's orbax checkpoints are not read: orbax is not a
 dependency of the port (ROADMAP M5).
 """
@@ -72,6 +74,7 @@ def state_payload(state: TrainState) -> dict:
         "center_state": host(state.center_state),
         **({"lowp": {k: host(v) for k, v in state.lowp.items()}}
            if state.lowp is not None else {}),
+        **({"gram": host(meta.gram.state_dict())} if meta.gram is not None else {}),
     }
 
 
@@ -108,10 +111,16 @@ def load_payload(state: TrainState, payload: dict) -> TrainState:
     into ``state``'s modules, moments and centers in place; every name must
     match. A payload without centers (format 1: Sinkhorn-Knopp runs, which
     never read them) keeps the initial ones, except under softmax
-    centering, where it raises."""
+    centering, where it raises. A run with a Gram branch needs the
+    payload's ``gram``; a payload's ``gram`` is ignored by a run without."""
     meta = state.meta
     meta.student.load_state_dict(payload["student"], strict=True)
     meta.teacher.load_state_dict(payload["teacher"], strict=True)
+    if meta.gram is not None:
+        if "gram" not in payload:
+            raise KeyError("checkpoint holds no Gram teacher (gram.use_loss is on "
+                           "with a frozen Gram branch)")
+        meta.gram.load_state_dict(payload["gram"], strict=True)
     names = [n for n, _ in meta.student.named_parameters()]
     for key, dst in (("mu", state.opt_state.mu), ("nu", state.opt_state.nu)):
         src = payload[key]
@@ -249,16 +258,27 @@ def jax_local_steps(directory: str) -> list[int]:
         and os.path.exists(os.path.join(directory, d, FINALIZED)))
 
 
-def teacher_backbone_state_dict(directory: str) -> tuple[int, dict]:
-    """(step, the EMA teacher backbone's ``state_dict``) of the latest
-    finalized step under ``directory``: a checkpoint of this package
-    (``payload["teacher"]``'s ``backbone.*`` tensors, the payload mapped,
-    not read whole), else a JAX local-npz one (only the teacher backbone's
-    leaves are read). The JAX package's orbax checkpoints are refused
-    (ROADMAP M5); a directory with no finalized step raises
-    ``FileNotFoundError``."""
-    step = Checkpointer(directory).latest_step()
-    if step is not None:
+def _pick_step(steps: list[int], step: int | None, directory: str) -> int:
+    if step is None:
+        return steps[-1]
+    if step not in steps:
+        raise FileNotFoundError(f"checkpoint step {step} not found under {directory} "
+                                f"(available: {steps})")
+    return step
+
+
+def teacher_backbone_state_dict(directory: str,
+                                step: int | None = None) -> tuple[int, dict]:
+    """(step, the EMA teacher backbone's ``state_dict``) of the finalized
+    step ``step`` (None: the latest) under ``directory``: a checkpoint of
+    this package (``payload["teacher"]``'s ``backbone.*`` tensors, the
+    payload mapped, not read whole), else a JAX local-npz one (only the
+    teacher backbone's leaves are read). The JAX package's orbax
+    checkpoints are refused (ROADMAP M5); a directory with no finalized
+    step, or without ``step``, raises ``FileNotFoundError``."""
+    steps = Checkpointer(directory).steps()
+    if steps:
+        step = _pick_step(steps, step, directory)
         path = os.path.join(directory, str(step), PAYLOAD)
         payload = torch.load(path, map_location="cpu", mmap=True, weights_only=True)
         if payload.get("format") not in (1, FORMAT):
@@ -273,9 +293,10 @@ def teacher_backbone_state_dict(directory: str) -> tuple[int, dict]:
             teacher_backbone_from_jax,
         )
 
-        with np.load(os.path.join(directory, str(steps[-1]), JAX_PAYLOAD)) as z:
+        step = _pick_step(steps, step, directory)
+        with np.load(os.path.join(directory, str(step), JAX_PAYLOAD)) as z:
             flat = {k: z[k] for k in z.files if keystr_path(k)[:3] == TEACHER_BACKBONE}
-        return steps[-1], teacher_backbone_from_jax(flat)
+        return step, teacher_backbone_from_jax(flat)
     if os.path.isdir(directory) and any(
             d.isdigit() and os.path.isdir(os.path.join(directory, d, "state"))
             for d in os.listdir(directory)):

@@ -296,8 +296,6 @@ def check_train_slice(cfg: ConfigNode) -> None:
                                          if n > 1)
          + ": sharded and model-parallel meshes wait (ROADMAP M7, M8); the "
          "port trains on one card, set each to 1"),
-        (bool(cfg.gram.use_loss), "gram.use_loss: the Gram loss waits "
-         "(ROADMAP M2)"),
         (bool(cfg.distillation.enabled), "distillation waits (ROADMAP M10)"),
     ]
     for refused, msg in waits:

@@ -17,29 +17,30 @@ import numpy as np
 
 
 def multires_subconfigs(cfg):
-    """One (sub_cfg, ratio) per (global, local) crop-size pair of the
-    ``crops`` lists, or None for scalar sizes (one resolution). Lists that
-    name Gram teacher sizes wait with the Gram anchor (ROADMAP M12)."""
+    """One (sub_cfg, ratio) per (global, local, Gram teacher) crop-size
+    triple of the ``crops`` lists, or None for scalar sizes (one
+    resolution). ``crops.gram_teacher_crops_size`` is then a list of one
+    size (or null) per entry, or unset."""
     crops = cfg.crops
     g_sizes = crops.global_crops_size
     if not isinstance(g_sizes, (list, tuple)):
         return None
-    if crops.get("gram_teacher_crops_size"):
-        raise NotImplementedError(
-            "crops.gram_teacher_crops_size in a crop-size list: the Gram "
-            "anchor waits (ROADMAP M12)")
     l_sizes = crops.local_crops_size
+    gram_sizes = crops.get("gram_teacher_crops_size") or [None] * len(g_sizes)
     ratios = crops.get("global_local_crop_pairs_ratios")
     if not isinstance(l_sizes, (list, tuple)) or len(l_sizes) != len(g_sizes):
         raise ValueError("global/local crop size lists must have equal length")
+    if not isinstance(gram_sizes, (list, tuple)):
+        raise ValueError("with crop-size lists, crops.gram_teacher_crops_size is a "
+                         f"list of one size a resolution, got {gram_sizes!r}")
     if not isinstance(ratios, (list, tuple)):
         ratios = [1.0] * len(g_sizes)
     out = []
-    for g, l, r in zip(g_sizes, l_sizes, ratios):
+    for g, l, gram, r in zip(g_sizes, l_sizes, gram_sizes, ratios):
         sub = copy.deepcopy(cfg)
         sub.crops.global_crops_size = int(g)
         sub.crops.local_crops_size = int(l)
-        sub.crops.gram_teacher_crops_size = None
+        sub.crops.gram_teacher_crops_size = int(gram) if gram else None
         out.append((sub, float(r)))
     return out
 

@@ -7,8 +7,8 @@ the mode to its threads), has its floating outputs checked, and the first
 NaN raises ``FloatingPointError`` naming the op and where it ran: the
 forward, or the backward of an autograd node. As in JAX only NaN is an
 error, not an infinity: the streaming losses start their running maxima
-at -inf. Ops that return uninitialized memory (``empty``) are not
-checked.
+at -inf. Ops that return uninitialized memory (``empty``) and tensors
+on the meta device (shapes without values) are not checked.
 
 The hand-written kernels K1-K5 are launched through ``ctypes`` and pass
 no dispatcher, so their ``autograd.Function`` wrappers call
@@ -51,7 +51,7 @@ def check_outputs(name: str, out) -> None:
     NaN, naming ``name`` and the phase."""
     for t in _leaves(out):
         if (t.is_floating_point() and t.element_size() > 1 and t.numel()
-                and bool(torch.isnan(t).any())):
+                and not t.is_meta and bool(torch.isnan(t).any())):
             raise FloatingPointError(
                 f"--debug-nans: {name} produced a NaN in the {_where()} "
                 f"(output of shape {tuple(t.shape)}, {t.dtype})")

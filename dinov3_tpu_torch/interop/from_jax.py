@@ -200,14 +200,14 @@ def train_state_from_jax(flat: Mapping[str, Any]) -> dict:
     the schedule index (``opt_state.count``) and Adam's bias-correction
     count (``opt_state.adam.count``) apart; the port keeps one count for
     both, so they must agree. The fp8/int8 amax rings come as "lowp"
-    (``lowp_rings_from_jax``) when the state holds them. A Gram teacher is
-    refused (ROADMAP M2)."""
+    (``lowp_rings_from_jax``) when the state holds them, and the frozen Gram
+    teacher (``params["gram"]["backbone"]``) as "gram", the ``state_dict``
+    of ``SSLMetaArch.gram``, mapped as the teacher's backbone is."""
     tree = _keystr_tree(flat)
     params, opt = tree["params"], tree["opt_state"]
-    if set(params) != {"student", "teacher"}:
-        raise NotImplementedError(
-            f"JAX checkpoint with params {sorted(params)}: only the student "
-            "and teacher are ported (the Gram teacher waits, ROADMAP M2)")
+    if set(params) - {"gram"} != {"student", "teacher"}:
+        raise KeyError(f"JAX checkpoint with params {sorted(params)}: a training "
+                       "state holds student, teacher and optionally gram")
     count, adam_count = int(np.asarray(opt["count"])), int(np.asarray(opt["adam"]["count"]))
     if count != adam_count:
         raise ValueError(f"schedule count {count} != Adam count {adam_count}")
@@ -218,8 +218,12 @@ def train_state_from_jax(flat: Mapping[str, Any]) -> dict:
     centers = {k: _to_torch(v, False) for k, v in tree["center_state"].items()}
     lowp = ({k: lowp_rings_from_jax(v) for k, v in tree["lowp"].items()}
             if isinstance(tree.get("lowp"), Mapping) else {})
+    gram = ({"gram": {f"backbone.{k}": v for k, v in
+                      state_dict_from_jax(params["gram"]["backbone"]).items()}}
+            if "gram" in params else {})
     return {**out, **moments, "center_state": centers, "count": count,
-            "step": int(np.asarray(tree["step"])), **({"lowp": lowp} if lowp else {})}
+            "step": int(np.asarray(tree["step"])), **({"lowp": lowp} if lowp else {}),
+            **gram}
 
 
 def lowp_rings_from_jax(tree: Mapping) -> dict[str, torch.Tensor]:

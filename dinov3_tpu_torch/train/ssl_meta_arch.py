@@ -11,6 +11,16 @@ teacher, each an ``nn.ModuleDict`` of ``backbone`` (the ViT),
 student and gets no gradients. Parameters are fp32 masters; the backbones
 and the heads' MLPs compute in ``compute_precision.compute_dtype``.
 
+Under ``gram.use_loss`` the Gram loss anchors the student's patch
+similarities to a Gram teacher's (``losses/gram_loss.py``): with
+``gram.ema_teacher`` the EMA teacher's patches, else a frozen ``gram``
+branch (``nn.ModuleDict`` of a ``backbone``, the teacher's architecture,
+starting as a copy of the student's initial backbone; no gradient, no
+optimizer state, no EMA) over ``gram_teacher_crops`` (else the global
+crops), its patch grid resized onto the student's as ``jax.image.resize``
+does (``ops/resize.py``). ``train/gram_refresh.py`` refreshes it from the
+teacher and loads it from ``gram.ckpt``.
+
 Batch contract (``data/synthetic.py``): global_crops [2B, S, S, 3],
 local_crops [n_l*B, s, s, 3], masks [2B, T] bool, mask_indices [2B, M]
 int (per-image token index, 0-padded), mask_weights [2B, M] fp32
@@ -37,6 +47,7 @@ from dinov3_tpu_torch.configs.config import (
 )
 from dinov3_tpu_torch.logging_utils import LOGGER_NAME
 from dinov3_tpu_torch.losses import (
+    gram_loss,
     ibot_loss_from_spec,
     koleo_loss,
     pair_ce_from_spec,
@@ -49,6 +60,7 @@ from dinov3_tpu_torch.models import ARCHS, backbone_kwargs_from_cfg, fp8_blocks
 from dinov3_tpu_torch.ops.common import Policy, canonical_dtype
 from dinov3_tpu_torch.ops.dino_head import DINOHead
 from dinov3_tpu_torch.ops.packing import packed_layout
+from dinov3_tpu_torch.ops.resize import resize_grid
 from dinov3_tpu_torch.rng.plan import fold_in_plan, step_generator, step_plan
 from dinov3_tpu_torch.train.optimizer import ema_
 
@@ -62,6 +74,16 @@ def _head(cfg_section, in_dim: int, dtype) -> DINOHead:
         bottleneck_dim=cfg_section.head_bottleneck_dim,
         nlayers=cfg_section.head_nlayers,
         norm_last_layer=cfg_section.head_norm_last_layer, dtype=dtype)
+
+
+def _uninitialized(build, *args, **kwargs) -> nn.Module:
+    """``build(*args, **kwargs)`` on the meta device, then given CPU
+    storage: a module whose parameters (all it holds) a seeded
+    ``init_weights`` or a ``load_state_dict`` fills, without a default
+    init pass over them first (seconds a block at 7B's width)."""
+    with torch.device("meta"):
+        module = build(*args, **kwargs)
+    return module.to_empty(device="cpu")
 
 
 class SSLMetaArch(nn.Module):
@@ -95,23 +117,25 @@ class SSLMetaArch(nn.Module):
         self._warned_unpacked = False
         dtype = Policy.from_cfg(cfg.compute_precision).compute_dtype
         depth = {} if n_blocks is None else {"n_blocks": n_blocks}
-        backbone = ARCHS[arch](**{**backbone_kwargs_from_cfg(cfg, teacher=False), **depth})
+        backbone = _uninitialized(ARCHS[arch],
+                                  **{**backbone_kwargs_from_cfg(cfg, teacher=False), **depth})
         if fp8_blocks(cfg):  # the student's block products only
             for blk in backbone.blocks:
                 blk.attn.fp8 = blk.mlp.fp8 = True
         self.embed_dim = backbone.embed_dim
         self.student = nn.ModuleDict({
             "backbone": backbone,
-            "dino_head": _head(cfg.dino, self.embed_dim, dtype),
-            "ibot_head": _head(cfg.ibot, self.embed_dim, dtype),
+            "dino_head": _uninitialized(_head, cfg.dino, self.embed_dim, dtype),
+            "ibot_head": _uninitialized(_head, cfg.ibot, self.embed_dim, dtype),
         })
+        # every parameter is drawn here (tests/test_torch_gram.py checks it)
         g = torch.Generator().manual_seed(seed)
         backbone.init_weights(g)
         self.student["dino_head"].init_weights(g)
         self.student["ibot_head"].init_weights(g)
         self.student.float()
-        teacher_backbone = ARCHS[arch](**{**backbone_kwargs_from_cfg(cfg, teacher=True),
-                                          **depth})
+        teacher_kwargs = {**backbone_kwargs_from_cfg(cfg, teacher=True), **depth}
+        teacher_backbone = _uninitialized(ARCHS[arch], **teacher_kwargs)
         self.teacher = nn.ModuleDict({
             "backbone": teacher_backbone,
             "dino_head": copy.deepcopy(self.student["dino_head"]),
@@ -119,16 +143,30 @@ class SSLMetaArch(nn.Module):
         }).float()
         self.teacher.load_state_dict(self.student.state_dict())
         self.teacher.requires_grad_(False)
-        self.dino_local_weight_schedule = None
-        if cfg.dino.reweight_dino_local_loss:
-            from dinov3_tpu_torch.train.schedules import linear_warmup_cosine_decay
+        self.gram_enabled = bool(cfg.gram.use_loss)
+        self.gram = None  # with gram.ema_teacher the anchor is the teacher's patches
+        if self.gram_enabled and not cfg.gram.ema_teacher:
+            gram_backbone = _uninitialized(ARCHS[arch], **teacher_kwargs)
+            gram_backbone.load_state_dict(backbone.state_dict())
+            self.gram = nn.ModuleDict({"backbone": gram_backbone}).requires_grad_(False)
+        self.dino_local_weight_schedule = self._weight_schedule(
+            cfg.dino.local_loss_weight_schedule if cfg.dino.reweight_dino_local_loss
+            else None)
+        self.gram_weight_schedule = self._weight_schedule(
+            cfg.gram.get("loss_weight_schedule") if self.gram_enabled else None)
 
-            s = cfg.dino.local_loss_weight_schedule
-            L = cfg.train.OFFICIAL_EPOCH_LENGTH
-            self.dino_local_weight_schedule = linear_warmup_cosine_decay(
-                start=s["start"], peak=s["peak"], end=s["end"],
-                warmup_iterations=int(s.get("warmup_epochs", 0) * L),
-                total_iterations=L * cfg.optim.epochs)
+    def _weight_schedule(self, s):
+        """A per-iteration loss-weight ramp from a {start, peak, end,
+        warmup_epochs} section, or None."""
+        if not s:
+            return None
+        from dinov3_tpu_torch.train.schedules import linear_warmup_cosine_decay
+
+        L = self.cfg.train.OFFICIAL_EPOCH_LENGTH
+        return linear_warmup_cosine_decay(
+            start=s["start"], peak=s["peak"], end=s["end"],
+            warmup_iterations=int(s.get("warmup_epochs", 0) * L),
+            total_iterations=L * self.cfg.optim.epochs)
 
     # ---------------- forwards ----------------
 
@@ -286,10 +324,43 @@ class SSLMetaArch(nn.Module):
         }
         return global_out, local_out
 
+    @torch.no_grad()
+    def get_gram_teacher_output(self, batch: dict, teacher_patches):
+        """The patch features [2B, T, D] the Gram loss anchors to: the
+        frozen Gram backbone over ``gram_teacher_crops`` (else the global
+        crops), or the EMA teacher's patches; a Gram grid of another size
+        is resized onto the student's (``gram.global_teacher_resize_*``)."""
+        if self.gram is None:
+            return teacher_patches
+        crops = batch.get("gram_teacher_crops")
+        if crops is None:
+            crops = batch["global_crops"]
+        feats = self.gram["backbone"](crops)["x_norm_patchtokens"]
+        p = self.cfg.student.patch_size
+        (_, ht, wt, _), (_, hs, ws, _) = crops.shape, batch["global_crops"].shape
+        ht, wt, hs, ws = ht // p, wt // p, hs // p, ws // p
+        if (ht, wt) == (hs, ws):
+            return feats
+        g = self.cfg.gram
+        grid = resize_grid(feats.reshape(feats.shape[0], ht, wt, -1), (hs, ws),
+                           method=g.global_teacher_resize_method,
+                           antialias=bool(g.global_teacher_resize_antialias))
+        return grid.reshape(feats.shape[0], hs * ws, -1)
+
     # ---------------- loss ----------------
 
+    def loss_names(self) -> list:
+        """The keys of ``compute_losses``' dict, in its order."""
+        names = ["dino_local_crops_loss", "dino_global_crops_loss", "koleo_loss",
+                 "ibot_loss"]
+        if self.gram_enabled:
+            names += ["gram_loss", "gram_loss_weight"]
+            if self.cfg.gram.get("compute_stats", False):
+                names += ["stats_only/masked_gram_loss", "stats_only/unmasked_gram_loss"]
+        return names + ["total_loss"]
+
     def compute_losses(self, teacher_global, student_global, student_local,
-                       batch: dict, iteration: int = 0):
+                       batch: dict, iteration: int = 0, gram_feats=None):
         cfg = self.cfg
         n_g, n_l = 2, self.n_local_crops
         ignore_diag = bool(cfg.dino.global_ignore_diagonal)
@@ -328,8 +399,41 @@ class SSLMetaArch(nn.Module):
             k_tile=self.loss_k_tile)
         loss_dict["ibot_loss"] = ibot
         total = total + cfg.ibot.loss_weight * ibot
+        if self.gram_enabled and gram_feats is not None:
+            total = total + self._gram_terms(student_global["patch_pre_head"],
+                                             gram_feats, batch, iteration, loss_dict)
         loss_dict["total_loss"] = total
         return total, loss_dict
+
+    def _gram_terms(self, patches, gram_feats, batch: dict, iteration: int,
+                    loss_dict: dict):
+        """The weighted Gram loss; its terms go into ``loss_dict``.
+        ``gram.tokens_used`` masked / unmasked restricts the Gram to those
+        tokens (token level); ``gram.compute_stats`` adds both views,
+        reported and never added."""
+        g = self.cfg.gram
+        weight = g.loss_weight
+        if self.gram_weight_schedule is not None:
+            sched = self.gram_weight_schedule
+            weight = float(sched[min(iteration, len(sched) - 1)])
+        kw = dict(normalize=g.normalized, remove_neg=g.remove_neg,
+                  remove_only_teacher_neg=g.remove_only_teacher_neg)
+        tokens_used = str(g.get("tokens_used", "all") or "all")
+        masks = batch["masks"]
+        if tokens_used not in ("all", "masked", "unmasked"):
+            raise ValueError(f"unknown gram.tokens_used {tokens_used!r}")
+        tok_mask = {"all": None, "masked": masks, "unmasked": ~masks}[tokens_used]
+        loss = gram_loss(patches, gram_feats, img_level=bool(g.img_level and tok_mask is None),
+                         token_mask=tok_mask, **kw)
+        loss_dict["gram_loss"] = loss
+        loss_dict["gram_loss_weight"] = torch.tensor(float(weight), dtype=torch.float32,
+                                                     device=loss.device)
+        if g.get("compute_stats", False):
+            with torch.no_grad():
+                for name, m in (("masked", masks), ("unmasked", ~masks)):
+                    loss_dict[f"stats_only/{name}_gram_loss"] = gram_loss(
+                        patches, gram_feats, img_level=False, token_mask=m, **kw)
+        return weight * loss
 
     def forward(self, batch: dict, *, teacher_temp: float, iteration: int = 0,
                 plan: dict | None = None, state: dict | None = None):
@@ -341,8 +445,13 @@ class SSLMetaArch(nn.Module):
             state = self.init_state(batch["global_crops"].device)
         teacher_global, new_state = self.get_teacher_output(batch, teacher_temp, state)
         student_global, student_local = self.get_student_output(batch, plan)
+        gram_feats = None
+        if self.gram_enabled:
+            gram_feats = self.get_gram_teacher_output(batch,
+                                                      teacher_global["patch_pre_head"])
         total, loss_dict = self.compute_losses(teacher_global, student_global,
-                                               student_local, batch, iteration)
+                                               student_local, batch, iteration,
+                                               gram_feats=gram_feats)
         return total, loss_dict, new_state
 
     @torch.no_grad()

@@ -59,9 +59,14 @@ unrolled whatever it says, and the run logs it.
 ``train.low_precision.arm=fp8|int8`` runs the block products quantized
 (``ops/lowp.py``); the drift probe's result is logged at set-up.
 
+Under ``gram.use_loss`` the Gram anchor trains with its frozen Gram
+teacher (``train/gram_refresh.py``): a fresh run loads it from
+``gram.ckpt`` before the first step; it is refreshed from the EMA teacher
+after the iterations its cadence names (the ``gram_refresh`` span), the
+count rebuilt on resume; the checkpoints carry it.
+
 Refused at start, each naming the ROADMAP item it waits for: distillation, multidistillation, high-res fine-tuning and
-pretrained weights (M10), the Gram anchor, its refresh and crop-size
-lists naming Gram teacher sizes (M12), sharded meshes (M7,
+pretrained weights (M10), sharded meshes (M7,
 ``configs/config.py``) and an elastic ``--resume-topology`` (M12). There is no preemption handler
 (M12): a signal ends the run, and the next one resumes from the last
 finalized checkpoint.
@@ -109,6 +114,12 @@ from dinov3_tpu_torch.telemetry import (
     Watchdog,
     emit_step_anatomy,
     host_sync_stats,
+)
+from dinov3_tpu_torch.train.gram_refresh import (
+    gram_updates_before,
+    load_gram_teacher,
+    refresh_gram,
+    should_refresh_gram,
 )
 from dinov3_tpu_torch.train.setup import build_train_setup
 from dinov3_tpu_torch.train.train_step import put_batch
@@ -185,13 +196,6 @@ def refuse_waiting(cfg, args, total_iters: int) -> None:
         (bool(cfg.hrft.enabled), "hrft (high-res fine-tuning) waits (ROADMAP M10)"),
         (bool(s.get("pretrained_weights") or s.get("resume_from_teacher_chkpt")),
          "pretrained student weights wait (ROADMAP M10)"),
-        (bool(cfg.gram.get("ckpt")) or bool(cfg.gram.use_loss and cfg.gram.rep_update
-                                            and not cfg.gram.ema_teacher),
-         "the Gram anchor and its refresh wait (ROADMAP M12)"),
-        (isinstance(cfg.crops.global_crops_size, (list, tuple))
-         and bool(cfg.crops.get("gram_teacher_crops_size")),
-         "crop-size lists naming Gram teacher sizes wait with the Gram anchor "
-         "(ROADMAP M12)"),
     ]
     for refused, msg in waits:
         if refused:
@@ -259,7 +263,8 @@ def build_data_iterator(cfg, batch_size: int, start_iter: int = 0,
 def resolved_engine(setup) -> dict:
     """What the step resolved from the config: the target engine
     (streaming or materialized), the centering, the K-tile cap, the
-    student's activation checkpointing and the accumulation steps."""
+    student's activation checkpointing, the accumulation steps and the
+    Gram anchor's teacher."""
     meta = setup.meta
     return {"targets": "streaming" if meta.streaming_targets else "materialized",
             "centering": meta.centering, "k_tile": meta.loss_k_tile,
@@ -269,6 +274,9 @@ def resolved_engine(setup) -> dict:
             # an XLA compile option: the port's block stack is unrolled
             "scan_layers": bool(setup.cfg.train.get("scan_layers", False)),
             "lowp_arm": setup.lowp["arm"],
+            # the Gram anchor's teacher: a frozen branch, the EMA teacher, or off
+            "gram": ("off" if not meta.gram_enabled
+                     else "ema_teacher" if meta.gram is None else "frozen"),
             "metrics": "ring" if setup.telemetry is not None else "per-step read"}
 
 
@@ -394,6 +402,9 @@ def _do_train(cfg, args, device, B: int, total_iters: int, prof) -> dict:
                                                 pin=device.type == "cuda")
                 first = next(data_iter)
             logger.info("resumed at iteration %d", start_iter)
+        else:  # a fresh run anchors its Gram teacher to a prior run's teacher
+            state = load_gram_teacher(cfg, state)
+        n_gram_updates = gram_updates_before(cfg, start_iter)
 
         logger.info("parameters:\n%s", format_parameter_counts(
             count_parameters(setup.meta.student)))
@@ -511,6 +522,10 @@ def _do_train(cfg, args, device, B: int, total_iters: int, prof) -> dict:
                                 "ms of wall (ledger: %s/trace/anatomy.json)",
                                 summary["device_busy_ms_per_step"],
                                 summary["step_wall_ms"]["mean"], out_dir)
+            if setup.meta.gram is not None and should_refresh_gram(cfg, it, n_gram_updates):
+                with tracer.span("gram_refresh", it):
+                    state = refresh_gram(state)
+                n_gram_updates += 1
             if timer.active(it):
                 timer.mark()
             if eval_period and (it + 1) % eval_period == 0:

@@ -39,7 +39,7 @@ from dinov3_tpu_torch.train.ssl_meta_arch import SSLMetaArch
 
 @dataclasses.dataclass
 class TrainState:
-    meta: SSLMetaArch      # holds the student and the EMA teacher
+    meta: SSLMetaArch      # holds the student, the EMA teacher and the Gram branch
     opt_state: AdamWState
     step: int = 0
     # softmax-centering EMA centers {"dino_center", "ibot_center"} (fp32
@@ -83,15 +83,11 @@ class StepMetrics:
         return dict(zip(self.names, self.values.tolist()))
 
 
-# the loss terms of ``SSLMetaArch.compute_losses``, in its order
-LOSS_NAMES = ("dino_local_crops_loss", "dino_global_crops_loss", "koleo_loss",
-              "ibot_loss", "total_loss")
-
-
 def metric_names(meta: SSLMetaArch) -> list:
-    """The step's metrics in ``StepMetrics`` order: the loss terms, then
-    the per-submodel pre-clip gradient norms."""
-    return list(LOSS_NAMES) + [f"grad_norm/{k}" for k in meta.student.keys()]
+    """The step's metrics in ``StepMetrics`` order: the loss terms (with
+    the Gram terms under ``gram.use_loss``), then the per-submodel
+    pre-clip gradient norms."""
+    return meta.loss_names() + [f"grad_norm/{k}" for k in meta.student.keys()]
 
 
 def split_microbatches(batch: dict, accum_steps: int) -> list[dict]:

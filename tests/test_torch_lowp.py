@@ -459,7 +459,7 @@ def test_one_training_step_per_arm_matches_jax(world, arm):
     from dinov3_tpu_torch.ops.lowp import lowp_history_init
     from dinov3_tpu_torch.train.optimizer import ScheduledAdamW
     from dinov3_tpu_torch.train.schedules import build_schedules
-    from dinov3_tpu_torch.train.train_step import LOSS_NAMES, TrainState, make_train_step
+    from dinov3_tpu_torch.train.train_step import TrainState, make_train_step
 
     w = world[arm]
     jsteps = _jax_step(w, arm, n_steps=2)
@@ -483,7 +483,7 @@ def test_one_training_step_per_arm_matches_jax(world, arm):
         tstate, tm = tstep(
             tstate, w["batch"], {"teacher_temp": s["teacher_temp"], "momentum": s["momentum"]},
             plan=_jax_plan(w["jmeta"], w["jbatch"], i))
-        for k in LOSS_NAMES:
+        for k in tmeta.loss_names():
             np.testing.assert_allclose(tm[k], float(jm[k]), rtol=1e-3, err_msg=f"step {i} {k}")
         lr = float(s["lr"])
         moved["student"] += 2 * lr

@@ -519,8 +519,7 @@ def test_build_train_setup_runs_a_step_and_refuses_the_cuts(world):
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="cuda"):
             build_train_setup(tcfg, batch)  # the default device is the card
-    for bad, err in (("gram.use_loss=true", NotImplementedError),
-                     ("parallel.fsdp=2", NotImplementedError),
+    for bad, err in (("parallel.fsdp=2", NotImplementedError),
                      ("model.crop_packing=sometimes", ValueError),
                      ("optim.accum_steps=3", ValueError)):
         cfg = get_default_config()

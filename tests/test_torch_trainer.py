@@ -422,14 +422,12 @@ def test_ref_losses_compare_against_a_file_the_jax_recorder_wrote(uninterrupted,
     assert bumped["loss_divergences"] == 1 and "at iter 2" in bumped["loss_comparison"]
 
 
-# ids as they were before the three M11 flags (now run, below) left the list
+# ids as they were before the three M11 flags and the two Gram-anchor
+# cases (now run, below) left the list
 @pytest.mark.parametrize("argv,extra,where", [
     pytest.param(["--resume-topology", "memory"], [], "M12", id="argv3-extra3-M12"),
     pytest.param([], ["multidistillation.enabled=true"], "M10", id="argv4-extra4-M10"),
     pytest.param([], ["hrft.enabled=true"], "M10", id="argv5-extra5-M10"),
-    pytest.param([], ["gram.ckpt=/nowhere"], "M12", id="argv6-extra6-M12"),
-    pytest.param([], ["crops.global_crops_size=[16,32]", "crops.local_crops_size=[8,8]",
-                      "crops.gram_teacher_crops_size=[16,32]"], "M12", id="argv7-extra7-M12"),
     pytest.param([], ["parallel.fsdp=8"], "M7", id="argv8-extra8-M7"),
 ])
 def test_trainer_refuses_what_waits_by_name(tmp_path, argv, extra, where):
@@ -460,6 +458,44 @@ def test_trainer_runs_the_m11_flags_it_used_to_refuse(tmp_path):
     assert Path(flags["trace"]).is_file() and flags["trace"].endswith(".trace.json.gz")
     assert (tmp_path / "flags" / "tb").is_dir() and any((tmp_path / "flags" / "tb").iterdir())
     assert not (tmp_path / "ckpt").exists()
+
+
+def test_trainer_runs_the_gram_anchor_it_used_to_refuse(tmp_path):
+    """``gram.ckpt`` and crop-size lists naming Gram teacher sizes, once
+    refused by name (ROADMAP M12), run: a fresh Gram run whose
+    ``gram.ckpt`` names another run's checkpoints starts from that run's
+    EMA teacher at ``gram.it_load_ema_teacher`` (its saved Gram branch is
+    that backbone, bit for bit, since no refresh falls in its one
+    iteration); ``gram.ckpt`` without a Gram branch raises ``ValueError``,
+    as in JAX; two (global, local, Gram) crop-size triples train with a
+    finite Gram loss at both resolutions."""
+    import dinov3_tpu_torch.train.train as T
+
+    src = tmp_path / "src"
+    T.do_train(port_cfg(src), port_args("--max-iterations", 4))
+    assert sorted(os.listdir(src / "ckpt")) == ["2", "4"]
+    gram = ["gram.use_loss=true", "crops.gram_teacher_crops_size=24"]
+    anchored = T.do_train(
+        port_cfg(tmp_path / "g", gram + [f"gram.ckpt={src / 'ckpt'}",
+                                         "gram.it_load_ema_teacher=2"]),
+        port_args("--max-iterations", 1, "--record-losses", tmp_path / "g.jsonl"))
+    assert anchored["gram"] == "frozen" and math.isfinite(anchored["final_loss"])
+    want = load_ckpt(src, 2)["teacher"]
+    got = load_ckpt(tmp_path / "g", 1)["gram"]
+    assert got.keys() == {k for k in want if k.startswith("backbone.")}
+    assert all(torch.equal(got[k], want[k]) for k in got)
+    assert not torch.equal(got["backbone.cls_token"],
+                           load_ckpt(src, 4)["teacher"]["backbone.cls_token"])
+    with pytest.raises(ValueError, match="no gram branch"):
+        T.do_train(port_cfg(tmp_path / "n", [f"gram.ckpt={src / 'ckpt'}"]),
+                   port_args("--max-iterations", 1))
+    lists = ["crops.global_crops_size=[16,24]", "crops.local_crops_size=[8,8]",
+             "crops.gram_teacher_crops_size=[24,32]", "gram.use_loss=true"]
+    multi = T.do_train(port_cfg(tmp_path / "l", lists), port_args(
+        "--max-iterations", 4, "--record-losses", tmp_path / "l.jsonl"))
+    rows = read_losses(tmp_path / "l.jsonl")
+    assert multi["iterations"] == 4 and sorted(rows) == [0, 1, 2, 3]
+    assert all(math.isfinite(r["gram_loss"]) and r["gram_loss"] > 0 for r in rows.values())
 
 
 def test_dump_weights_writes_the_final_student_and_teacher(tmp_path):

@@ -201,21 +201,24 @@ def test_split_advance_and_the_combiner_stream_are_bitwise_jax(ratios):
         assert list(itertools.islice(iter(resumed), 35)) == want[25:]
 
 
-def test_multires_subconfigs_match_jax_and_gram_lists_wait():
+def test_multires_subconfigs_match_jax_with_and_without_gram_lists():
     from dinov3_tpu.data.multires import multires_subconfigs as jax_subs
 
     from dinov3_tpu_torch.data import multires_subconfigs
 
+    def triples(subs):
+        return [(c.crops.global_crops_size, c.crops.local_crops_size,
+                 c.crops.gram_teacher_crops_size, r) for c, r in subs]
+
     lists = ["crops.global_crops_size=[16,24]", "crops.local_crops_size=[8,12]",
              "crops.global_local_crop_pairs_ratios=[0.25,0.75]"]
-    jcfg, tcfg = cfgs(lists)
-    got, want = multires_subconfigs(tcfg), jax_subs(jcfg)
-    assert [(c.crops.global_crops_size, c.crops.local_crops_size, r) for c, r in got] == [
-        (c.crops.global_crops_size, c.crops.local_crops_size, r) for c, r in want]
+    for gram in ([], ["crops.gram_teacher_crops_size=[32,48]"],
+                 ["crops.gram_teacher_crops_size=[32,null]"]):
+        jcfg, tcfg = cfgs(lists + gram)
+        got, want = triples(multires_subconfigs(tcfg)), triples(jax_subs(jcfg))
+        assert got == want and len(got) == 2
+    assert got[0][2] == 32 and got[1][2] is None
     assert multires_subconfigs(cfgs()[1]) is None and jax_subs(cfgs()[0]) is None
-    _, gram = cfgs(lists + ["crops.gram_teacher_crops_size=[32,48]"])
-    with pytest.raises(NotImplementedError, match="M12"):
-        multires_subconfigs(gram)
 
 
 # ---------------- the trainer's pipeline on web shards ----------------
