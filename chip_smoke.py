@@ -78,7 +78,7 @@ I. the evaluation path at ViT-L/16: feature extraction with seeded
 J. the serving plane at ViT-L/16 (run before I, which deletes phase G's
    checkpoint), through ``dinov3_tpu_torch/serve/bench.py``'s functions
    on the default ``serve:`` block: the packed engine and both oracles
-   over the same 256 mixed_ragged requests after a disjoint warm-up draw
+   over the same 128 mixed_ragged requests after a disjoint warm-up draw
    (J1: sustained img/s, a rated Poisson replay at 0.7 x the packed rate
    with exact p50/p99 overall and per SLO class and the observer's
    histograms within a bucket of them, packed features within 2^-5 of
@@ -95,7 +95,8 @@ K. the ViT-g/14 web-shard recipe (``configs/train/vitg14_webshards.yaml``:
    131,072 prototypes, ``blocks`` remat; one-card override
    ``parallel.fsdp=1``): K1-K5 against their plain versions at its shapes
    (K0: N = 261 with and without ids, N = 54, D = 1536); the trainer CLI at
-   full width and depth, B=16, from 320 seeded JPEGs in web shards it
+   full width cut to 20 of its 40 blocks (``VITG_CLI_DEPTH``, the time
+   limit), B=16, from 320 seeded JPEGs in web shards it
    writes, 11 iterations (4 timed: ms a step, img/s, peak memory, launches
    pinned a step; the resumes in a new process are phase G's and M3's)
    (K1); the options the slice
@@ -144,6 +145,28 @@ M. the Gram anchor at ViT-7B width (``configs/train/vit7b16_gram_anchor.yaml``:
    run anchored by ``gram.ckpt`` to a checkpoint written here, a refresh
    after iteration 2, and a resume from its step-2 save, past torn saves,
    in a new process, held by ``--ref-losses`` and bitwise (M3).
+N. distillation at ViT-7B depth (``configs/train/vitl16_distilled.yaml``:
+   a ViT-L/16 student at B=16, 262,144 / 98,304 prototypes, distilling from
+   ``configs/train/vit7b16_pretrain.yaml``'s ViT-7B/16 at its 40 blocks,
+   drawn on the card; one-card overrides ``parallel.fsdp=1
+   data.backend=synthetic``): K1-K5 against their plain versions at this
+   path's shapes (the student's packed rows at B=16, the in-step teacher's
+   [32 x 32, 261, 128], the teacher engine's packs [4 x 32, 522, 128] with
+   ids, K4 at D = 1024 and 4096); the step through ``build_train_setup`` +
+   ``step_fn`` with the teacher in the step (2 warm-up and 5 timed steps:
+   set-up s, ms, img/s, peak, launches pinned a step, every loss finite,
+   the teacher unchanged; one step profiled by kernel class) (N0); in the
+   same process, the shared ``TeacherServer`` built from the state's
+   teacher (cast to bf16 on the card): its planes against the in-step
+   teacher's features, a replay with no forward and the same bits, the
+   engine's img/s and device-busy profile, 3 serve-arm steps with
+   launches pinned and one profiled, a second student's config getting
+   the same server (N1); a 2-block ViT-L student from a 1-block ViT-7B-width teacher
+   on the card against the CPU (N2, in a process of its own beside N3);
+   the trainer CLI on the serve arm with its student cut to 4 blocks and a
+   teacher checkpoint written here: 4 iterations, a resume from the step-2
+   save in a new process held by ``--ref-losses`` and bitwise, and
+   ``--self-check`` reporting the frozen teacher (N3).
 
 Prints each phase's seconds, the kernel table as one JSON line, the card's name and power
 limit, and as its last line ``{"ok": true, "device": {...}}``. Any
@@ -1352,7 +1375,9 @@ def card_vs_cpu_step(label: str, overrides: list, config: str | None = None,
     gradient norms and the updated student compared (``moved_close``: the
     share of moved entries within a tenth of their step). ``planted``
     (``planted_backward``) runs the card's step once more under that
-    wrong backward and prints its share, which is not held."""
+    wrong backward and prints its share, which is not held. A distillation
+    teacher is drawn on each run's device: the card's is copied into the
+    CPU's."""
     import torch
 
     from dinov3_tpu_torch.configs import load_config
@@ -1370,15 +1395,21 @@ def card_vs_cpu_step(label: str, overrides: list, config: str | None = None,
         batch = make_synthetic_batch(cfg, cfg.train.batch_size_per_device, seed=1)
     it = cfg.optim.warmup_epochs * cfg.train.OFFICIAL_EPOCH_LENGTH
     accum = int(cfg.optim.accum_steps)
-    plans = None
+    plans = teacher = None
     results = {}
     for dev in ("cuda", "cpu") + (("planted",) if planted else ()):
         setup = build_train_setup(cfg, batch, device="cuda" if dev == "planted" else dev,
                                   seed=2, n_blocks=n_blocks)
+        if setup.meta.distillation:
+            if teacher is None:
+                teacher = {k: v.cpu() for k, v in setup.meta.teacher.state_dict().items()}
+            setup.meta.teacher.load_state_dict(teacher)
         if plans is None:  # drawn once on the host: both devices take these
             plans = [setup.meta.draw_plan(0, it, mb, None if accum == 1 else j)
                      for j, mb in enumerate(split_microbatches(batch, accum))]
-            check(all(plans), f"[{label}] no drop-path plan")
+            # a recipe without drop path (the distilled one) draws no plan
+            check(all(plans) or not cfg.student.drop_path_rate,
+                  f"[{label}] no drop-path plan")
         state = setup.state
         state.step = state.opt_state.count = it
         before = {n: p.detach().cpu().clone()
@@ -1593,6 +1624,26 @@ def _phase_g(cfg) -> dict:
     for f in os.listdir(os.path.join(a_dir, "ckpt", "4")):
         os.link(os.path.join(a_dir, "ckpt", "4", f), os.path.join(r_dir, "ckpt", "4", f))
     plant_torn_saves(os.path.join(r_dir, "ckpt"), 5)
+    # the self-check and the image-folder pipeline (2 steps on texture
+    # images, PIL on the host) run beside the resume: none of the three is
+    # timed, and each holds ~12 GiB of the card
+    from concurrent.futures import ThreadPoolExecutor
+
+    from dinov3_tpu_torch.data.textures import materialize_textures
+
+    t0 = time.perf_counter()
+    train_dir, _ = materialize_textures(os.path.join(G_DIR, "textures"),
+                                        n_train_per_class=8, n_val_per_class=0,
+                                        px=256, seed=0)
+    print(f"[G] 96 texture images of 256 px written in {time.perf_counter() - t0:.1f} s")
+    beside = ThreadPoolExecutor(max_workers=2)
+    sc_run = beside.submit(run_cli, "self-check",
+                           ["--output-dir", os.path.join(G_DIR, "s"), "--self-check"])
+    folder_run = beside.submit(
+        run_cli, "folder", ["--output-dir", os.path.join(G_DIR, "f"), "--max-iterations", "2"],
+        ["data.backend=folder", f"train.dataset_path=Folder:root={train_dir}",
+         "train.num_workers=8"])
+    beside.shutdown(wait=False)
     r_losses, dump = os.path.join(G_DIR, "r.jsonl"), os.path.join(G_DIR, "w.npz")
     r = run_cli("resumed to 8", ["--output-dir", r_dir, "--max-iterations", "8",
                                  "--record-losses", r_losses, "--ref-losses", a_losses,
@@ -1640,26 +1691,14 @@ def _phase_g(cfg) -> dict:
     shutil.rmtree(r_dir)
     os.remove(dump)
 
-    sc = run_cli("self-check", ["--output-dir", os.path.join(G_DIR, "s"), "--self-check"])
+    sc = sc_run.result()
     failed = [k for k, v in sc.items() if k.startswith("check/") and not v]
     print(f"[G] self-check at full width, {CLI_DEPTH} blocks: "
           f"{sum(k.startswith('check/') for k in sc)} "
           f"checks, failures {failed}")
     check(sc["self_check_failures"] == 0 and not failed, f"[G] self-check failed: {failed}")
     check_launches("self-check", sc, 2)
-
-    # the image-folder pipeline: 2 steps on texture images (PIL on the host)
-    from dinov3_tpu_torch.data.textures import materialize_textures
-
-    t0 = time.perf_counter()
-    train_dir, _ = materialize_textures(os.path.join(G_DIR, "textures"),
-                                        n_train_per_class=8, n_val_per_class=0,
-                                        px=256, seed=0)
-    print(f"[G] 96 texture images of 256 px written in {time.perf_counter() - t0:.1f} s")
-    folder = run_cli("folder", ["--output-dir", os.path.join(G_DIR, "f"),
-                                "--max-iterations", "2"],
-                     ["data.backend=folder", f"train.dataset_path=Folder:root={train_dir}",
-                      "train.num_workers=8"])
+    folder = folder_run.result()
     check_launches("folder", folder, 2)
     check(np.isfinite(folder["final_loss"]), f"[G] folder run loss {folder['final_loss']}")
 
@@ -2259,8 +2298,9 @@ def phase_i5(g_step_ms: list) -> None:
 # ---------------------------------------------------------------- phase J
 
 J_DIR = os.path.join(REPO, "build", "phase_j")
-# measured requests of each serving-plane draw (and as many warm-up ones)
-J_N = 256
+# measured requests of each serving-plane draw (and as many warm-up ones):
+# 256 until phase N joined the smoke, 128 since, for the time limit (PERF.md §5)
+J_N = 128
 J_SLOS = ("interactive", "batch")
 # launches of one ViT-L/16 forward: a packed pack (K4 adds the CLS norm
 # applied beside the patch norm) and a plain forward of the oracles
@@ -2651,11 +2691,24 @@ VITG_B = 16
 # heads of 64, patch 14, 4 registers; 224 px globals (1 + 4 + 256 = 261
 # tokens) and 98 px locals (1 + 4 + 49 = 54 tokens), packed 4 to a row
 VITG_N, VITG_N_LOCAL, VITG_H, VITG_D = 261, 54, 24, 1536
-# launches of one step of the recipe under its `blocks` remat: K1 40
-# teacher + 40 student + 40 recomputed; K4 81 teacher (2 a block and the
-# final norm), 82 student (and the local-CLS norm), 80 recomputed; K5 once
-# a student K4 launch; K2, K3 once a student block
-VITG_LAUNCHES = {"K1": 120, "K2": 40, "K3": 40, "K4": 243, "K5": 82}
+# K1's CLI run at full width cut to 20 of the recipe's 40 blocks (a 10.3 GB
+# save, not 20.5): with phase N the whole smoke passed its 1,200 s on a slow
+# host at 40 (PERF.md §5); K0's kernels at ViT-g's shapes and K2's options
+# do not depend on the depth
+VITG_CLI_DEPTH = 20
+
+
+def vitg_launches(depth: int) -> dict:
+    """K1-K5 launches of one step of the recipe at ``depth`` blocks under
+    its ``blocks`` remat: K1 once a teacher, a student and a recomputed
+    block; K4 twice a block in each of those, plus the teacher's final norm
+    and the student's final and local-CLS norms; K5 once a student K4
+    launch; K2, K3 once a student block (120, 40, 40, 243, 82 at 40)."""
+    return {"K1": 3 * depth, "K2": depth, "K3": depth, "K4": 6 * depth + 3,
+            "K5": 2 * depth + 2}
+
+
+VITG_LAUNCHES = vitg_launches(VITG_CLI_DEPTH)
 # the CLI run of K1: iterations 3-5 profiled (phase L1), the last 4 timed
 # (--benchmark, after the profiler's window)
 VITG_ITERS, VITG_PROFILE = 11, (3, 5)
@@ -2816,8 +2869,8 @@ def write_web_shards(root: str, n_images: int = 320, per_shard: int = 64,
 
 
 def phase_k1() -> dict:
-    """The ViT-g/14 recipe through the trainer CLI at full width and depth
-    from web shards written here: 11 iterations at B=16 (3-5 profiled, the
+    """The ViT-g/14 recipe through the trainer CLI at full width, cut to
+    ``VITG_CLI_DEPTH`` blocks, from web shards written here: 11 iterations at B=16 (3-5 profiled, the
     step anatomy of phase L1; 7-10 timed, after the profiler's window; one
     save at the end); launches pinned a step, losses finite. The resumes
     in a new process run in phases G and M3."""
@@ -2827,7 +2880,8 @@ def phase_k1() -> dict:
     print(f"[K] K1: 320 JPEGs of 256 px in 5 web shards ({nbytes} bytes) written "
           f"in {time.perf_counter() - t0:.1f} s; disk free "
           f"{shutil.disk_usage(K_DIR).free / 2 ** 30:.1f} GiB")
-    base = VITG_OVERRIDES + [f"data.root={shards}", f"checkpointing.period={VITG_ITERS}"]
+    base = VITG_OVERRIDES + [f"data.root={shards}", f"checkpointing.period={VITG_ITERS}",
+                             f"+student.n_blocks={VITG_CLI_DEPTH}"]
     run = os.path.join(K_DIR, "run")
     losses = os.path.join(K_DIR, "a.jsonl")
     a = run_cli("vitg14 recipe", ["--output-dir", run, "--max-iterations", str(VITG_ITERS),
@@ -2843,7 +2897,8 @@ def phase_k1() -> dict:
     check(sorted(rec) == list(range(VITG_ITERS)) and all(
         np.isfinite(v) for r in rec.values() for v in r.values()), f"[K] losses {rec}")
     a["l1"] = phase_l1(run, a)
-    print(f"[K] K1 ViT-g/14 at B={VITG_B}: {a['ms_per_step']:.1f} ms a step, "
+    print(f"[K] K1 ViT-g/14 at B={VITG_B}, {VITG_CLI_DEPTH} blocks: "
+          f"{a['ms_per_step']:.1f} ms a step, "
           f"{a['img_per_sec']:.2f} img/s, peak {a['peak_memory_gib']:.2f} GiB; save "
           f"{a['saves'][0]['bytes']} bytes in {a['saves'][0]['seconds']:.1f} s; losses at "
           f"iteration {VITG_ITERS - 1}: "
@@ -3772,6 +3827,527 @@ def phase_m3() -> dict:
     return {"uninterrupted": a, "resumed": r}
 
 
+# ---------------------------------------------------------------- phase N
+
+N_DIR = os.path.join(REPO, "build", "phase_n")
+DISTILL_CONFIG = os.path.join("configs", "train", "vitl16_distilled.yaml")
+# the recipe's images a step on one card (train.batch_size_per_device)
+DISTILL_B = 16
+# the one-card overrides of the recipe: no FSDP mesh (ROADMAP M7), synthetic data
+DISTILL_OVERRIDES = ["parallel.fsdp=1", "data.backend=synthetic"]
+# ViT-L/16 student (24 blocks, 16 heads of 64, 4 registers: 261-token
+# globals, 54-token locals packed 4 to a row) and its ViT-7B/16 teacher
+# (configs/train/vit7b16_pretrain.yaml: 40 blocks, 32 heads of 128, D = 4096)
+DISTILL_STUDENT_DEPTH, DISTILL_TEACHER_DEPTH = 24, 40
+# the teacher engine's packs: 4 rows of 2 x 261 tokens (serve.min_px =
+# serve.max_px = the 256 px global crop)
+TEACHER_PACK_ROWS, TEACHER_ROW_TOKENS = 4, 522
+# N2 and N3's teacher: the 7B recipe at 1 block with small heads (4096
+# prototypes, hidden width 2048) and LayerScale 1 (so its block reaches
+# the targets), written under N_DIR; its run's checkpoint is 3.2 GB
+N_TEACHER_OVERRIDES = {"n_blocks": 1, "layerscale": 1.0}
+N_SMALL_HEADS = ["dino.head_n_prototypes=4096", "ibot.head_n_prototypes=4096",
+                 "dino.head_hidden_dim=2048", "ibot.head_hidden_dim=2048"]
+# N3's student depth: a save of its student, moments and teacher is ~1.6 GB
+N_CLI_DEPTH = 4
+
+
+def distill_launches(student: int, teacher: int, source: str = "in_step") -> dict:
+    """K1-K5 launches of one distillation step: K1 once a student block and,
+    in the step (``in_step``), once a teacher block; K4 twice a block in each
+    backbone plus the student's final and local-CLS norms and the teacher's
+    prefix and patch norms (its untied CLS norms); K2, K3 once a student
+    block, K5 once a student K4 launch. The recipe sets no remat."""
+    t = teacher if source == "in_step" else 0
+    return {"K1": student + t, "K2": student, "K3": student,
+            "K4": 2 * student + 2 + (2 * t + 2 if t else 0), "K5": 2 * student + 2}
+
+
+def teacher_pack_launches(teacher: int) -> dict:
+    """K1 and K4 launches of one teacher-engine pack: K1 once a block, K4
+    twice a block plus the prefix and patch norms."""
+    return {"K1": teacher, "K2": 0, "K3": 0, "K4": 2 * teacher + 2, "K5": 0}
+
+
+def n_teacher_yaml() -> str:
+    """The 1-block, small-headed ViT-7B teacher recipe of N2 and N3, written
+    under N_DIR."""
+    import yaml
+
+    with open(os.path.join(REPO, "configs", "train", "vit7b16_pretrain.yaml")) as f:
+        recipe = yaml.safe_load(f)
+    recipe["student"].update(N_TEACHER_OVERRIDES)
+    for head in ("dino", "ibot"):
+        recipe[head].update(head_n_prototypes=4096, head_hidden_dim=2048)
+    path = os.path.join(N_DIR, "teacher_7b_1block.yaml")
+    with open(path, "w") as f:
+        yaml.safe_dump(recipe, f)
+    return path
+
+
+def phase_n() -> dict:
+    """Distillation at the recipe's widths and the teacher's full depth on
+    one card (module docstring)."""
+    import torch
+
+    from dinov3_tpu_torch.train.multidistillation import _SHARED_TEACHERS
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    shutil.rmtree(N_DIR, ignore_errors=True)
+    os.makedirs(N_DIR)
+    children = []
+    try:
+        out = {}
+        t0 = time.perf_counter()
+        out["N0"], setup, batch = phase_n0()
+        print(f"[N] N0 {time.perf_counter() - t0:.1f} s")
+        t0 = time.perf_counter()
+        out["N1"] = phase_n1(setup, batch)
+        print(f"[N] N1 {time.perf_counter() - t0:.1f} s")
+        del setup, batch
+        _SHARED_TEACHERS.clear()
+        gc.collect()
+        torch.cuda.empty_cache()
+        # N2's CPU half takes the host's cores and N3's children wait
+        # mostly on the card and the disk: N2 runs in a process of its own
+        t0 = time.perf_counter()
+        yaml_path = n_teacher_yaml()
+        children.append(subprocess.Popen(
+            [sys.executable, os.path.abspath(__file__), N2_CHILD, yaml_path], cwd=REPO,
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
+        out["N3"] = phase_n3(yaml_path, children)
+        print(f"[N] N3 {time.perf_counter() - t0:.1f} s")
+        n2_out, _ = children[0].communicate(timeout=600)
+        print(n2_out.rstrip())
+        check(children[0].returncode == 0, f"[N] N2 exit {children[0].returncode}")
+        print(f"[N] N2 and N3 {time.perf_counter() - t0:.1f} s")
+        return out
+    finally:
+        for child in children:
+            if child.poll() is None:
+                child.kill()
+                child.wait()
+        _SHARED_TEACHERS.clear()
+        shutil.rmtree(N_DIR, ignore_errors=True)
+
+
+def distill_student_seg():
+    """The seg plane [R, 261] of the student's packed pass at the recipe's
+    B=16 (2B global rows, 4 local crops of 54 tokens a packed row; the
+    recipe has no drop path, so every row)."""
+    from dinov3_tpu_torch.ops.packing import make_packed_layout, packed_segment_ids
+
+    layout = make_packed_layout(n_global_rows=2 * DISTILL_B, n_local=8 * DISTILL_B,
+                                seq_global=GRAM_N, seq_local=GRAM_N_LOCAL, n_prefix=5)
+    return packed_segment_ids(layout)
+
+
+def teacher_pack_seg(teacher_cfg, n_images: int = 8):
+    """The seg plane [4, 522] of one teacher-engine pack: 256 px global
+    crops, two a row, from the port's own batcher on the teacher's layout."""
+    from dinov3_tpu_torch.serve import ContinuousBatcher, ServeRequest, serve_layout_from_cfg
+
+    layout = serve_layout_from_cfg(teacher_cfg)
+    batcher = ContinuousBatcher(layout)
+    rng = np.random.default_rng(5)
+    for i in range(n_images):
+        batcher.admit(ServeRequest(request_id=i, image=rng.standard_normal(
+            (256, 256, 3)).astype(np.float32)))
+    seg = batcher.next_pack().planes["seg"].copy()
+    check(seg.shape == (TEACHER_PACK_ROWS, TEACHER_ROW_TOKENS),
+          f"[N] teacher pack seg {seg.shape}")
+    return seg
+
+
+def phase_n_kernels() -> dict:
+    """K1-K5 against their plain versions at this path's new shapes: K1 on
+    the student's packed rows at B=16 (ids, head_dim 64), the in-step
+    teacher's [2B x 32, 261, 128] (no ids) and the teacher engine's pack
+    [4 x 32, 522, 128] (ids); K2, K3 on the student's rows; K4 at D = 1024
+    on a student block's rows, at D = 4096 on the teacher's rows and a
+    pack's; K5 on a student block's rows."""
+    import torch
+
+    from dinov3_tpu_torch.configs import load_config
+    from dinov3_tpu_torch.train.distillation import resolve_distillation_cfg
+
+    dev = torch.device("cuda")
+    g = torch.Generator().manual_seed(17)
+    bf16 = torch.bfloat16
+
+    def randn(*shape, dtype=bf16):
+        return torch.randn(*shape, generator=g).to(dev, dtype)
+
+    def qkv_views(rows, n, heads, d):
+        qkv = randn(rows, n, 3 * heads * d)
+        q, k, v = (qkv[..., i * heads * d:(i + 1) * heads * d].reshape(rows, n, heads, d)
+                   for i in range(3))
+        return q.contiguous(), k.contiguous(), v
+
+    cfg = load_config(os.path.join(REPO, DISTILL_CONFIG), DISTILL_OVERRIDES, n_devices=1)
+    tcfg = resolve_distillation_cfg(cfg)
+    tcfg.serve.min_px = tcfg.serve.max_px = 256
+    out = {k: {} for k in ("K1", "K2", "K3", "K4", "K5")}
+    seg = torch.from_numpy(distill_student_seg()).to(dev)
+    R = seg.shape[0]
+    q, k, v = qkv_views(R, GRAM_N, 16, 64)
+    label = f"ViT-L student B={DISTILL_B} [{R}x16, {GRAM_N}, 64] bf16 seg"
+    out["K1"]["student"] = check_flash(q, k, v, seg, label, time_it=True)
+    bwd = check_flash_bwd(q, k, v, seg, label, time_it=True)
+    out["K2"]["student"], out["K3"]["student"] = bwd["K2"], bwd["K3"]
+    del q, k, v
+    q, k, v = qkv_views(2 * DISTILL_B, GRAM_N, GRAM_H, 128)
+    out["K1"]["teacher"] = check_flash(
+        q, k, v, None, f"ViT-7B in-step teacher [{2 * DISTILL_B}x{GRAM_H}, {GRAM_N}, 128] "
+        "bf16 no seg", time_it=True)
+    del q, k, v
+    pseg = torch.from_numpy(teacher_pack_seg(tcfg)).to(dev)
+    q, k, v = qkv_views(TEACHER_PACK_ROWS, TEACHER_ROW_TOKENS, GRAM_H, 128)
+    out["K1"]["teacher pack"] = check_flash(
+        q, k, v, pseg, f"ViT-7B teacher engine pack [{TEACHER_PACK_ROWS}x{GRAM_H}, "
+        f"{TEACHER_ROW_TOKENS}, 128] bf16 seg", time_it=True)
+    del q, k, v
+    for name, rows, d in (("student block", R * GRAM_N, 1024),
+                          ("teacher", 2 * DISTILL_B * GRAM_N, GRAM_D),
+                          ("teacher pack", TEACHER_PACK_ROWS * TEACHER_ROW_TOKENS, GRAM_D)):
+        s_, b_ = (torch.randn(d, generator=g) * 0.5 + 1).to(dev), torch.randn(
+            d, generator=g).to(dev)
+        out["K4"][name] = check_layernorm(randn(rows, d) * 3 + 1, s_, b_,
+                                          f"{name} [{rows}, {d}] bf16, fp32 params",
+                                          time_it=True)
+    s_ = (torch.randn(1024, generator=g) * 0.5 + 1).to(dev)
+    out["K5"]["student block"] = check_layernorm_bwd(
+        randn(R * GRAM_N, 1024) * 3 + 1, s_,
+        f"ViT-L student block [{R * GRAM_N}, 1024] bf16, fp32 scale", time_it=True)
+    return out
+
+
+def _param_digest(module) -> list:
+    """Each parameter's version counter (bumped by any in-place write) and
+    the int64 sum of its bits as int32 words, taken on the card."""
+    import torch
+
+    return [(p._version, p.detach().view(torch.int32).sum(dtype=torch.int64).item())
+            for p in module.parameters()]
+
+
+def phase_n0() -> tuple:
+    """The recipe's step (``vitl16_distilled.yaml`` with
+    ``DISTILL_OVERRIDES``: ViT-L/16 student at B=16, 262,144 / 98,304
+    prototypes) with its ViT-7B teacher at 40 blocks, drawn on the card,
+    in the step: ``build_train_setup`` + ``step_fn``, 2 warm-up steps and 5
+    timed, every loss finite, the launches pinned a step, one more step
+    profiled by kernel class, the teacher unchanged by the steps. Returns
+    (record, setup, batch) for N1."""
+    import torch
+
+    from dinov3_tpu_torch.configs import load_config
+    from dinov3_tpu_torch.data import make_synthetic_batch
+    from dinov3_tpu_torch.train import build_train_setup, put_batch
+
+    kernels = phase_n_kernels()
+    gc.collect()
+    torch.cuda.empty_cache()
+    cfg = load_config(os.path.join(REPO, DISTILL_CONFIG), DISTILL_OVERRIDES, n_devices=1)
+    batch = make_synthetic_batch(cfg, DISTILL_B, seed=0)
+    check(batch["global_crops"].shape == (2 * DISTILL_B, 256, 256, 3)
+          and batch["local_crops"].shape == (8 * DISTILL_B, 112, 112, 3),
+          f"[N] batch {[(k, v.shape) for k, v in batch.items()]}")
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    setup = build_train_setup(cfg, batch, device="cuda", seed=0)
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    meta = setup.meta
+    tb, sb = meta.teacher["backbone"], meta.student["backbone"]
+    check(meta.distillation and meta.teacher_source == "in_step"
+          and (tb.n_blocks, tb.embed_dim, tb.head_dim) == (DISTILL_TEACHER_DEPTH, GRAM_D, 128)
+          and (sb.n_blocks, sb.embed_dim, sb.head_dim) == (DISTILL_STUDENT_DEPTH, 1024, 64)
+          and next(tb.parameters()).device.type == "cuda",
+          "[N] the set-up did not resolve a 40-block ViT-7B teacher and a ViT-L student")
+    n_params = {k: sum(p.numel() for p in getattr(meta, k).parameters())
+                for k in ("student", "teacher")}
+    held = torch.cuda.memory_allocated() / 2 ** 30
+    print(f"[N] N0 set-up {setup_s:.1f} s (teacher drawn on the card): parameters "
+          f"{n_params}, {held:.2f} GiB held")
+    dbatch = put_batch(batch, "cuda")  # data loading is set-up
+    digest = _param_digest(meta.teacher)
+    sample = {n: p.detach().clone() for n, p in meta.teacher.named_parameters()
+              if n.startswith(("backbone.blocks.0.", "backbone.blocks.39.", "dino_head.mlp.0",
+                               "ibot_head.last_layer"))}
+    state = setup.state
+    for i in range(2):
+        t0 = time.perf_counter()
+        state, m = setup.step_fn(state, dbatch, setup.scalars(i))
+        torch.cuda.synchronize()
+        print(f"[N] N0 warm-up step {i}: {(time.perf_counter() - t0) * 1e3:.1f} ms")
+    reset_counts()
+    times, steps = [], 5
+    for i in range(2, 2 + steps):
+        t0 = time.perf_counter()
+        state, m = setup.step_fn(state, dbatch, setup.scalars(i))
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+        check(all(np.isfinite(v) for v in m.values()), f"[N] step {i}: {m}")
+    launches = read_counts()
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    per_step = {k: v / steps for k, v in launches.items()}
+    want = distill_launches(DISTILL_STUDENT_DEPTH, DISTILL_TEACHER_DEPTH)
+    check(per_step == want, f"[N] launches a step {per_step} != {want}")
+    profile = profile_step(setup, state, batch, label="N0")
+    check(_param_digest(meta.teacher) == digest
+          and all(torch.equal(p, sample[n]) for n, p in meta.teacher.named_parameters()
+                  if n in sample),
+          "[N] the steps moved the frozen teacher")
+    median = float(np.median(times))
+    print(f"[N] N0 ViT-L/16 <- ViT-7B/16 ({DISTILL_TEACHER_DEPTH} blocks) in the step, "
+          f"B={DISTILL_B}: {steps} steps median {median:.1f} ms ("
+          + ", ".join(f"{t:.1f}" for t in times)
+          + f"), {DISTILL_B / median * 1e3:.2f} img/s, peak {peak:.2f} GiB; launches a step "
+          f"{per_step}; the teacher unchanged (version counters, bit sums, "
+          f"{len(sample)} tensors compared); losses at step {2 + steps - 1}: "
+          + ", ".join(f"{k} {v:.4f}" for k, v in m.items() if not k.startswith("grad")))
+    setup.state = state
+    return ({"kernels": kernels, "launches": launches, "per_step": per_step,
+             "median_ms": median, "step_ms": times, "peak_gib": peak, "setup_s": setup_s,
+             "profile": profile,
+             "held_gib": held, "losses": {k: v for k, v in m.items()
+                                          if not k.startswith("grad")}},
+            setup, batch)
+
+
+def phase_n1(setup, batch) -> dict:
+    """The serve arm on N0's teacher in the same process: the shared
+    ``TeacherServer`` built from the state's teacher (cast to bf16 on the
+    card), its planes for the batch's global crops against the in-step
+    teacher's features (bf16; K1 with ids against K1 without: 2^-5 of the
+    largest magnitude), a replay of the same crops with no new forward and
+    the same bits, the engine's img/s at 256 px and one batch of misses
+    profiled, 3 steps reading the planes (launches pinned) and a fourth
+    profiled, and a second student's config (the ViT-B/16
+    multidistillation student) getting the same server."""
+    import torch
+
+    from dinov3_tpu_torch.configs import apply_dot_overrides
+    from dinov3_tpu_torch.data import make_synthetic_batch
+    from dinov3_tpu_torch.train import put_batch
+    from dinov3_tpu_torch.train.multidistillation import (
+        setup_multidistillation,
+        shared_teacher_server,
+    )
+
+    meta = setup.meta
+    cfg = copy.deepcopy(setup.cfg)
+    cfg.distillation.teacher_source = "serve"
+    sd = meta.teacher["backbone"].state_dict()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    server = shared_teacher_server(cfg, teacher_params=sd, device="cuda")
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    print(f"[N] N1 teacher server built in {build_s:.1f} s (bf16 cast on the card, "
+          f"fingerprint {server.fingerprint}); "
+          f"{torch.cuda.memory_allocated() / 2 ** 30:.2f} GiB held")
+    cls, patches = meta.teacher_backbone_features(put_batch(batch, "cuda"))
+    reset_counts()
+    t0 = time.perf_counter()
+    ann = server.annotate(batch)
+    first_s = time.perf_counter() - t0
+    pack = read_counts()
+    packs = server.engine.packs_run
+    per_pack = {k: v / packs for k, v in pack.items()}
+    want = teacher_pack_launches(DISTILL_TEACHER_DEPTH)
+    check(per_pack == want, f"[N] teacher pack launches {per_pack} != {want}")
+    errs = {}
+    for name, got, ref in (("cls", ann["teacher_cls"], cls),
+                           ("patches", ann["teacher_patches"], patches)):
+        ref = ref.float().cpu().numpy()
+        errs[name] = float(np.abs(got - ref).max())
+        tol = 2.0 ** -5 * float(np.abs(ref).max())
+        check(got.shape == ref.shape and errs[name] <= tol,
+              f"[N] served teacher {name} vs in-step: {errs[name]:.4g} > {tol:.4g}")
+    print(f"[N] N1 served planes vs the in-step teacher (bf16, K1 with ids vs without): "
+          f"max|cls| err {errs['cls']:.4g}, max|patches| err {errs['patches']:.4g} "
+          f"(tol 2^-5 of the largest magnitude)")
+    forwards = server.teacher_forwards
+    t0 = time.perf_counter()
+    again = server.annotate(batch)
+    hit_s = time.perf_counter() - t0
+    check(server.teacher_forwards == forwards
+          and all(np.array_equal(again[k], ann[k]) for k in ("teacher_cls", "teacher_patches")),
+          "[N] a replay forwarded again or changed the planes")
+    n = 2 * DISTILL_B
+    # steps on the serve arm: the same meta-arch reading the batch's planes
+    fresh = [make_synthetic_batch(setup.cfg, DISTILL_B, seed=seed) for seed in (1, 2, 3)]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    batches = [ann] + [server.annotate(b) for b in fresh[:2]]  # all misses
+    miss_s = (time.perf_counter() - t0) / 2
+    # one batch of misses through the engine, under the profiler
+    engine_profile = device_busy(lambda: server.annotate(fresh[2]), "N1 teacher engine")
+    meta.teacher_source = "serve"
+    try:
+        state = setup.state
+        reset_counts()
+        times = []
+        for i, b in enumerate(batches):
+            t0 = time.perf_counter()
+            state, m = setup.step_fn(state, put_batch(b, "cuda"), setup.scalars(10 + i))
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+            check(all(np.isfinite(v) for v in m.values()), f"[N] serve step {i}: {m}")
+        steps = read_counts()
+        step_profile = profile_step(setup, state, batches[-1], label="N1 serve arm")
+    finally:
+        meta.teacher_source = "in_step"
+    per_step = {k: v / len(batches) for k, v in steps.items()}
+    want = distill_launches(DISTILL_STUDENT_DEPTH, DISTILL_TEACHER_DEPTH, "serve")
+    check(per_step == want, f"[N] serve-arm launches a step {per_step} != {want}")
+    stats = server.stats()
+    check(stats["compile_count"] == 1 and stats["teacher_forwards"] == 4 * n
+          and stats["requests"] == 5 * n, f"[N] server stats {stats}")
+    # a second student of the same teacher (the spec's ViT-B/16) shares it
+    md = copy.deepcopy(cfg)
+    apply_dot_overrides(md, ["multidistillation.enabled=true"])
+    md.multidistillation.students = [{
+        "name": "vitb", "ranks_range": [0, 1],
+        "config_path": os.path.join(REPO, "configs", "train", "multidist_tests",
+                                    "vitb_p16.yaml")}]
+    other = setup_multidistillation(md, 0, 1, N_DIR,
+                                    extra_overrides=["crops.global_crops_size=256"]).cfg
+    check(other.student.arch == "vit_base"
+          and shared_teacher_server(other, teacher_params=sd, device="cuda") is server,
+          "[N] a second student of the same teacher got another server")
+    print(f"[N] N1 teacher engine at 256 px: {n / miss_s:.1f} img/s on misses "
+          f"({miss_s * 1e3:.1f} ms for {n} crops in {packs} packs; the first batch "
+          f"{first_s * 1e3:.1f} ms), {n / hit_s:.1f} img/s on hits; pack launches "
+          f"{per_pack}; serve-arm steps "
+          + ", ".join(f"{t:.1f}" for t in times) + f" ms, launches a step {per_step}; "
+          f"stats {stats}; a ViT-B/16 student of the same teacher got the same server")
+    setup.state = state
+    return {"build_s": build_s, "miss_img_s": n / miss_s, "hit_img_s": n / hit_s,
+            "first_batch_s": first_s, "engine_profile": engine_profile,
+            "step_profile": step_profile,
+            "packs": packs, "per_pack": per_pack, "pack_launches": pack,
+            "step_launches": steps, "per_step": per_step, "step_ms": times,
+            "errs": errs, "stats": stats}
+
+
+# the argument that runs phase N2 alone (phase N starts it beside N3)
+N2_CHILD = "--phase-n2"
+
+
+def phase_n2(teacher_yaml: str) -> None:
+    """One distillation step of a 2-block ViT-L-width student (2 images,
+    4096 prototypes, LayerScale 1) from a 1-block ViT-7B-width teacher on
+    the card and on the CPU, the same weights (the teacher drawn on the
+    card, copied to the CPU's), compared as phase F compares. Runs in a
+    process of its own (``N2_CHILD``), beside N3."""
+    card_vs_cpu_step("N2 distillation", DISTILL_OVERRIDES + [
+        "train.batch_size_per_device=2", f"distillation.full_cfg_path={teacher_yaml}"],
+        config=DISTILL_CONFIG)
+
+
+def phase_n3(teacher_yaml: str, children: list) -> dict:
+    """The trainer CLI on the recipe with its student cut to
+    ``N_CLI_DEPTH`` blocks and small heads, from a teacher checkpoint
+    written here (the 1-block ViT-7B-width recipe's own run, seed 7):
+    4 iterations with ``teacher_source=serve``, saving at 2 and 4, the
+    teacher its checkpoint's bit for bit; a resume from the step-2 save
+    (linked beside torn saves) in a new process, held by ``--ref-losses``
+    and bitwise; ``--self-check`` (in a process started beside the run)
+    reporting ``distillation_teacher_frozen``. Launches pinned: the
+    student's serve-arm steps plus the teacher engine's packs."""
+    import torch
+
+    from dinov3_tpu_torch.checkpoint import Checkpointer
+    from dinov3_tpu_torch.configs import load_config
+    from dinov3_tpu_torch.data import make_synthetic_batch
+    from dinov3_tpu_torch.train import build_train_setup
+
+    anchor = os.path.join(N_DIR, "teacher_run")
+    base = DISTILL_OVERRIDES + N_SMALL_HEADS + [
+        f"+student.n_blocks={N_CLI_DEPTH}", "checkpointing.period=2",
+        f"distillation.full_cfg_path={teacher_yaml}", f"distillation.checkpoint_path={anchor}",
+        "distillation.teacher_source=serve"]
+    kw = dict(base=base, label="N", log_dir=N_DIR, config=DISTILL_CONFIG, timeout=400)
+    sc_cmd = [sys.executable, "-m", "dinov3_tpu_torch.train.train", "--config-file",
+              DISTILL_CONFIG, "--output-dir", os.path.join(N_DIR, "sc"), "--self-check", *base]
+    children.append(subprocess.Popen(sc_cmd, cwd=REPO, stdout=subprocess.PIPE,
+                                     stderr=subprocess.STDOUT, text=True))
+    tcfg = load_config(teacher_yaml, DISTILL_OVERRIDES, n_devices=1)
+    src = build_train_setup(tcfg, make_synthetic_batch(tcfg, 2, seed=3), device="cuda", seed=7)
+    saved = Checkpointer(anchor).save(1, src.state)
+    teacher = {k: v.detach().cpu() for k, v in src.meta.teacher.state_dict().items()}
+    del src
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"[N] N3 teacher checkpoint (the 1-block ViT-7B-width recipe's run, seed 7): "
+          f"{saved['bytes']} bytes in {saved['seconds']:.1f} s")
+    a_dir, r_dir = os.path.join(N_DIR, "a"), os.path.join(N_DIR, "r")
+    a = run_cli("distill uninterrupted", [
+        "--output-dir", a_dir, "--max-iterations", "4",
+        "--record-losses", os.path.join(N_DIR, "a.jsonl")], **kw)
+    n = 2 * DISTILL_B
+    packs = -(-n // (2 * TEACHER_PACK_ROWS))  # a batch's crops, two a row
+
+    def launches(steps: int, batches: int) -> dict:
+        s = distill_launches(N_CLI_DEPTH, 1, "serve")
+        p = teacher_pack_launches(1)
+        return {k: steps * s[k] + batches * packs * p[k] for k in s}
+
+    ts = a["teacher_serve"]
+    check(a["distillation"] == "serve" and [s["step"] for s in a["saves"]] == [2, 4]
+          and a["launches"] == launches(4, 5), f"[N] N3 run {a}")
+    check(ts["requests"] == 5 * n and ts["teacher_forwards"] == 5 * n
+          and ts["compile_count"] == 1, f"[N] N3 teacher_serve {ts}")
+
+    def payload(d, step):
+        return torch.load(os.path.join(d, "ckpt", str(step), "state.pt"),
+                          map_location="cpu", weights_only=True, mmap=True)
+
+    wa = payload(a_dir, 4)
+    check(wa["teacher"].keys() == teacher.keys()
+          and all(torch.equal(wa["teacher"][k], v) for k, v in teacher.items()),
+          "[N] N3 the run's teacher is not its checkpoint's")
+    os.makedirs(os.path.join(r_dir, "ckpt", "2"))
+    for f in os.listdir(os.path.join(a_dir, "ckpt", "2")):
+        os.link(os.path.join(a_dir, "ckpt", "2", f), os.path.join(r_dir, "ckpt", "2", f))
+    plant_torn_saves(os.path.join(r_dir, "ckpt"))
+    r = run_cli("distill resumed", ["--output-dir", r_dir, "--max-iterations", "4",
+                                    "--record-losses", os.path.join(N_DIR, "r.jsonl"),
+                                    "--ref-losses", os.path.join(N_DIR, "a.jsonl")], **kw)
+    check(r["start_iteration"] == 2 and r["iterations"] == 4
+          and r["launches"] == launches(2, 3) and r["loss_divergences"] == 0,
+          f"[N] N3 resume {r}")
+    whole, resumed = read_losses(os.path.join(N_DIR, "a.jsonl")), read_losses(
+        os.path.join(N_DIR, "r.jsonl"))
+    check(sorted(resumed) == [2, 3] and all(resumed[i] == whole[i] for i in resumed)
+          and all(np.isfinite(v) for row in whole.values() for v in row.values()),
+          "[N] N3 the resumed losses differ from the uninterrupted run's")
+    wr = payload(r_dir, 4)
+    for key in ("student", "teacher", "mu", "nu"):
+        check(wa[key].keys() == wr[key].keys()
+              and all(torch.equal(wa[key][k], wr[key][k]) for k in wa[key]),
+              f"[N] N3 resumed {key} differs from the uninterrupted run's")
+    sc_out, _ = children[-1].communicate(timeout=400)
+    with open(os.path.join(N_DIR, "self_check.log"), "w") as f:
+        f.write(sc_out)
+    check(children[-1].returncode == 0, f"[N] N3 self-check exit {children[-1].returncode}:\n"
+          + "\n".join(sc_out.splitlines()[-30:]))
+    sc = json.loads(sc_out.strip().splitlines()[-1])
+    check(sc["self_check_failures"] == 0 and sc["check/distillation_teacher_frozen"] is True,
+          f"[N] N3 self-check {sc}")
+    print(f"[N] N3 CLI ({N_CLI_DEPTH}-block student, 1-block teacher, serve arm): the "
+          f"teacher loaded from its checkpoint bitwise; resume from step 2 past torn saves "
+          f"in a new process bitwise (losses, student, teacher, moments); teacher_serve {ts}; "
+          f"self-check {sum(k.startswith('check/') for k in sc)} checks passed, "
+          "distillation_teacher_frozen")
+    del wa, wr
+    return {"uninterrupted": a, "resumed": r, "self_check": sc}
+
+
 def main() -> int:
     import torch
 
@@ -3789,6 +4365,11 @@ def main() -> int:
         t0 = time.perf_counter()
         phase_m2()
         print(f"[M] M2 {time.perf_counter() - t0:.1f} s")
+        return 0
+    if sys.argv[1:2] == [N2_CHILD]:  # phase N's N2, beside N3
+        t0 = time.perf_counter()
+        phase_n2(sys.argv[2])
+        print(f"[N] N2 {time.perf_counter() - t0:.1f} s")
         return 0
     cfg = load_config(os.path.join(REPO, "configs", "train", "vitl16_im1k.yaml"))
     t_start = time.perf_counter()
@@ -3817,6 +4398,7 @@ def main() -> int:
     vitg = timed("K", phase_k)
     lp = timed("L", phase_l)
     gram = timed("M", phase_m)
+    distill = timed("N", phase_n)
     print(f"[smoke] all phases passed in {time.perf_counter() - t_start:.1f} s: "
           + ", ".join(f"{k} {v:.1f}" for k, v in seconds.items()))
     for key in ("K1", "K4"):
@@ -3825,6 +4407,7 @@ def main() -> int:
     for key in KERNELS:
         rows[key]["vitg_shapes"] = vitg["rows"][key]
         rows[key]["vit7b_shapes"] = gram["M0"][key]
+        rows[key]["distill_shapes"] = distill["N0"]["kernels"][key]
 
     table = []
     for key, name, source, replaces in (
@@ -3853,13 +4436,24 @@ def main() -> int:
             # CLI iterations (phase K1, in its own process), the recipe's
             # 5 timed steps in bf16, fp8 and int8 (phase L2), the ViT-7B
             # Gram anchor's 3 timed steps (phase M1) and its CLI's
-            # uninterrupted 4 iterations (phase M3, in its own process)
+            # uninterrupted 4 iterations (phase M3, in its own process),
+            # the distillation step's 5 timed steps with its 40-block
+            # teacher (N0), the teacher engine's first packs and the 3
+            # serve-arm steps (N1), and the distillation CLI's
+            # uninterrupted 4 iterations (N3, in its own process)
             "launches": (serve_launches[key] + train_launches[key] + cli["launches"][key]
                          + recipe["launches"][key] + ev["launches"][key]
                          + serving["launches"][key] + vitg["cli"]["launches"][key]
                          + sum(lp["L2"][arm]["launches"][key] for arm in lp["L2"])
                          + gram["M1"]["launches"][key]
-                         + gram["M3"]["uninterrupted"]["launches"][key]),
+                         + gram["M3"]["uninterrupted"]["launches"][key]
+                         + distill["N0"]["launches"][key]
+                         + distill["N1"]["pack_launches"][key]
+                         + distill["N1"]["step_launches"][key]
+                         + distill["N3"]["uninterrupted"]["launches"][key]),
+            "launches_per_distill_step": distill["N0"]["per_step"][key],
+            "launches_per_distill_serve_step": distill["N1"]["per_step"][key],
+            "launches_per_teacher_pack": distill["N1"]["per_pack"][key],
             "launches_per_vit7b_gram_step": gram["M1"]["per_step"][key],
             "launches_per_recipe_step_fp8": lp["L2"]["fp8"]["per_step"][key],
             "launches_per_recipe_step_int8": lp["L2"]["int8"]["per_step"][key],
@@ -3875,7 +4469,7 @@ def main() -> int:
             "bound_by": r["bound_by"], "library_ms": r["library_ms"],
             **{k: r[k] for k in ("cold_ms", "visited_share", "walked_share", "train_shapes",
                                  "eval_shapes", "oracle_shapes", "vitg_shapes",
-                                 "vit7b_shapes") if k in r},
+                                 "vit7b_shapes", "distill_shapes") if k in r},
         })
     print(f"[smoke] train step {step['ms']:.1f} ms, "
           f"{TRAIN_B / step['ms'] * 1e3:.2f} img/s, peak {step['peak_gib']:.2f} GiB; "
@@ -3890,7 +4484,11 @@ def main() -> int:
           f"(bf16 {lp['L2']['bf16']['median_ms']:.1f} ms); the ViT-7B/16 Gram anchor "
           f"(B={GRAM_B}, {GRAM_DEPTH} blocks) {gram['M1']['median_ms']:.1f} ms a step, "
           f"{GRAM_B / gram['M1']['median_ms'] * 1e3:.2f} img/s, peak "
-          f"{gram['M1']['peak_gib']:.2f} GiB")
+          f"{gram['M1']['peak_gib']:.2f} GiB; ViT-L/16 distilled from the 40-block "
+          f"ViT-7B/16 (B={DISTILL_B}) {distill['N0']['median_ms']:.1f} ms a step, "
+          f"{DISTILL_B / distill['N0']['median_ms'] * 1e3:.2f} img/s, peak "
+          f"{distill['N0']['peak_gib']:.2f} GiB, set-up {distill['N0']['setup_s']:.1f} s; "
+          f"the teacher engine {distill['N1']['miss_img_s']:.1f} img/s at 256 px")
     print(json.dumps({"kernels": table}))
     print(smi_line())
     print(json.dumps({"ok": True, "device": {

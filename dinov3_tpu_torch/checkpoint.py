@@ -17,9 +17,11 @@ plus every ``keep_every``-th. Saving is synchronous.
 ``restore_jax_local`` reads the JAX package's local-npz checkpoints
 (``<dir>/<n>/state.npz`` keyed by the ``jax.tree_util.keystr`` paths of
 its ``TrainState``, the centers included) through ``interop/from_jax.py``;
-it needs neither JAX nor ``ml_dtypes``. ``teacher_backbone_state_dict``
-reads only the EMA teacher's backbone from either kind (evals, serving,
-``gram.ckpt``).
+it needs neither JAX nor ``ml_dtypes``. ``params_state_dicts`` reads the
+parameter branches alone from either kind (a distillation teacher,
+warm starts, ``Checkpointer.restore_params_only``), and
+``teacher_backbone_state_dict`` the EMA teacher's backbone (evals,
+serving, ``gram.ckpt``).
 The JAX package's orbax checkpoints are not read: orbax is not a
 dependency of the port (ROADMAP M5).
 """
@@ -239,6 +241,27 @@ class Checkpointer:
         logger.info("restored checkpoint at step %d", step)
         return state
 
+    @torch.no_grad()
+    def restore_params_only(self, state: TrainState, step: int | None = None) -> TrainState:
+        """Load only the parameters (student, teacher and, where the run
+        has one, the Gram branch) of the finalized step ``step`` (None:
+        the latest) into ``state``, strictly; the optimizer's moments and
+        count, the centers and the step stay as they are (fresh): the
+        high-res adaptation and fine-tuning entry (``hrft.checkpoint_path``).
+        Reads this package's checkpoints and the JAX package's local-npz
+        ones (``params_state_dicts``)."""
+        step, sds = params_state_dicts(self.directory, step)
+        meta = state.meta
+        meta.student.load_state_dict(sds["student"], strict=True)
+        meta.teacher.load_state_dict(sds["teacher"], strict=True)
+        if meta.gram is not None:
+            if "gram" not in sds:
+                raise KeyError(f"checkpoint under {self.directory} holds no Gram teacher "
+                               "(gram.use_loss is on with a frozen Gram branch)")
+            meta.gram.load_state_dict(sds["gram"], strict=True)
+        logger.info("restored the parameters only of step %d from %s", step, self.directory)
+        return state
+
     def wait_until_finished(self) -> None:
         """Saves are synchronous: nothing is ever in flight."""
 
@@ -267,15 +290,16 @@ def _pick_step(steps: list[int], step: int | None, directory: str) -> int:
     return step
 
 
-def teacher_backbone_state_dict(directory: str,
-                                step: int | None = None) -> tuple[int, dict]:
-    """(step, the EMA teacher backbone's ``state_dict``) of the finalized
-    step ``step`` (None: the latest) under ``directory``: a checkpoint of
-    this package (``payload["teacher"]``'s ``backbone.*`` tensors, the
-    payload mapped, not read whole), else a JAX local-npz one (only the
-    teacher backbone's leaves are read). The JAX package's orbax
-    checkpoints are refused (ROADMAP M5); a directory with no finalized
-    step, or without ``step``, raises ``FileNotFoundError``."""
+def params_state_dicts(directory: str, step: int | None = None,
+                       branches=("student", "teacher", "gram")) -> tuple[int, dict]:
+    """(step, {branch: ``state_dict``}) of the parameter branches
+    ``branches`` (of ``student``, ``teacher``, ``gram``; a branch the
+    checkpoint lacks is left out) at the finalized step ``step`` (None: the
+    latest) under ``directory``: a checkpoint of this package (its payload
+    mapped, not read whole), else a JAX local-npz one (only those branches'
+    leaves are read, mapped by ``interop/from_jax.py``). The JAX package's
+    orbax checkpoints are refused (ROADMAP M5); a directory with no
+    finalized step, or without ``step``, raises ``FileNotFoundError``."""
     steps = Checkpointer(directory).steps()
     if steps:
         step = _pick_step(steps, step, directory)
@@ -283,20 +307,14 @@ def teacher_backbone_state_dict(directory: str,
         payload = torch.load(path, map_location="cpu", mmap=True, weights_only=True)
         if payload.get("format") not in (1, FORMAT):
             raise ValueError(f"{path}: not a checkpoint of this package")
-        return step, {k[len("backbone."):]: v for k, v in payload["teacher"].items()
-                      if k.startswith("backbone.")}
+        return step, {b: payload[b] for b in branches if b in payload}
     steps = jax_local_steps(directory)
     if steps:
-        from dinov3_tpu_torch.interop.from_jax import (
-            TEACHER_BACKBONE,
-            keystr_path,
-            teacher_backbone_from_jax,
-        )
+        from dinov3_tpu_torch.interop.from_jax import params_state_dicts_from_jax
 
         step = _pick_step(steps, step, directory)
         with np.load(os.path.join(directory, str(step), JAX_PAYLOAD)) as z:
-            flat = {k: z[k] for k in z.files if keystr_path(k)[:3] == TEACHER_BACKBONE}
-        return step, teacher_backbone_from_jax(flat)
+            return step, params_state_dicts_from_jax(z, branches)
     if os.path.isdir(directory) and any(
             d.isdigit() and os.path.isdir(os.path.join(directory, d, "state"))
             for d in os.listdir(directory)):
@@ -304,6 +322,16 @@ def teacher_backbone_state_dict(directory: str,
             f"{directory} holds orbax checkpoints of the JAX package: only its "
             "local-npz checkpoints are read (ROADMAP M5)")
     raise FileNotFoundError(f"no finalized checkpoint under {directory}")
+
+
+def teacher_backbone_state_dict(directory: str,
+                                step: int | None = None) -> tuple[int, dict]:
+    """(step, the EMA teacher backbone's ``state_dict``) of the finalized
+    step ``step`` (None: the latest) under ``directory``, of either kind
+    (``params_state_dicts``)."""
+    step, sds = params_state_dicts(directory, step, ("teacher",))
+    return step, {k[len("backbone."):]: v for k, v in sds["teacher"].items()
+                  if k.startswith("backbone.")}
 
 
 def restore_jax_local(directory: str, state: TrainState) -> TrainState:

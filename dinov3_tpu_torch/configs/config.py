@@ -286,6 +286,7 @@ def check_train_slice(cfg: ConfigNode) -> None:
         raise ValueError(f"optim.accum_steps must be >= 1, got {cfg.optim.accum_steps}")
     streaming_targets_wished(cfg)  # raises on a bad value
     crop_packing_wished(cfg), rng_plan_wished(cfg)  # raise on bad values
+    distill_teacher_source(cfg)  # raises on a bad value
     s = cfg.student
     par = cfg.get("parallel") or {}
     sharded = {axis: int(par.get(axis, 1) or 1) for axis in
@@ -296,7 +297,6 @@ def check_train_slice(cfg: ConfigNode) -> None:
                                          if n > 1)
          + ": sharded and model-parallel meshes wait (ROADMAP M7, M8); the "
          "port trains on one card, set each to 1"),
-        (bool(cfg.distillation.enabled), "distillation waits (ROADMAP M10)"),
     ]
     for refused, msg in waits:
         if refused:
@@ -576,6 +576,27 @@ def serve_cache_wished(cfg: ConfigNode) -> bool:
     if isinstance(e, str):
         return e.lower() in ("auto", "true", "on")
     return bool(e)
+
+
+def distill_teacher_source(cfg: ConfigNode) -> str:
+    """``distillation.teacher_source``, where the frozen teacher's
+    features come from under distillation:
+
+    - ``in_step`` (default): the teacher backbone forwards inside the
+      train step, the oracle the serve arm is held against;
+    - ``serve``: the process-shared packed teacher engine
+      (``train/distillation.py TeacherServer``) computes the CLS and patch
+      features once per image, its content-addressed cache absorbs
+      repeats, and the step reads them from the batch's ``teacher_cls`` /
+      ``teacher_patches`` planes (``SSLMetaArch.get_teacher_output``).
+
+    Anything else raises ``ValueError``."""
+    d = cfg.get("distillation") or {}
+    ts = str(d.get("teacher_source", "in_step") or "in_step").lower()
+    if ts not in ("in_step", "serve"):
+        raise ValueError(
+            f"distillation.teacher_source={ts!r}: expected in_step|serve")
+    return ts
 
 
 def serve_cache_entry_bytes(embed_dim: int, patch_tokens: int = 0) -> int:

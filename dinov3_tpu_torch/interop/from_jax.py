@@ -21,8 +21,9 @@ keyed by their ``jax.tree_util.keystr`` paths (the JAX package's local-npz
 checkpoint) and returns the student, the teacher, the Adam moments (keyed
 by the student's names), the update count, the step and, from an fp8 /
 int8 run, the amax rings (``lowp_rings_from_jax``);
-``teacher_backbone_from_jax`` takes only the EMA teacher's backbone (what
-the evals and serving restore). bf16 leaves that
+``params_state_dicts_from_jax`` takes the parameter branches alone (a
+distillation teacher of another architecture with its own heads
+included; what the evals, serving and the warm starts restore). bf16 leaves that
 ``np.savez`` stored as 2-byte void records are read as bf16 by their bits.
 """
 
@@ -108,15 +109,17 @@ def head_state_dict_from_jax(params: Mapping) -> dict[str, torch.Tensor]:
 
 def meta_state_dicts_from_jax(params: Mapping) -> dict[str, dict]:
     """The JAX training tree {"student": ..., "teacher": ...} (each
-    {backbone, dino_head, ibot_head}) -> {"student": state_dict,
-    "teacher": state_dict} for ``SSLMetaArch.student`` / ``.teacher``."""
+    {backbone, dino_head, ibot_head}; a head it lacks is left out) ->
+    {"student": state_dict, "teacher": state_dict} for
+    ``SSLMetaArch.student`` / ``.teacher``."""
     out = {}
     for role, sub in params.items():
         sd = {f"backbone.{k}": v
               for k, v in state_dict_from_jax(sub["backbone"]).items()}
         for head in ("dino_head", "ibot_head"):
-            sd.update({f"{head}.{k}": v for k, v in
-                       head_state_dict_from_jax(sub[head]).items()})
+            if head in sub:
+                sd.update({f"{head}.{k}": v for k, v in
+                           head_state_dict_from_jax(sub[head]).items()})
         out[role] = sd
     return out
 
@@ -178,18 +181,22 @@ def _keystr_tree(flat: Mapping[str, Any]) -> dict:
     return tree
 
 
-TEACHER_BACKBONE = ("params", "teacher", "backbone")
-
-
-def teacher_backbone_from_jax(flat: Mapping[str, Any]) -> dict[str, torch.Tensor]:
-    """The EMA teacher's backbone of a JAX ``TrainState`` (``{keystr path:
-    array}``, other leaves ignored) -> the backbone's Meta-named
-    ``state_dict``."""
-    tree = _keystr_tree({k: v for k, v in flat.items()
-                         if keystr_path(k)[:3] == TEACHER_BACKBONE})
-    if not tree:
-        raise KeyError("no params['teacher']['backbone'] leaves in the JAX state")
-    return state_dict_from_jax(tree["params"]["teacher"]["backbone"])
+def params_state_dicts_from_jax(flat: Mapping[str, Any],
+                                branches=("student", "teacher", "gram")) -> dict:
+    """The parameter branches ``branches`` of a JAX ``TrainState``
+    (``{keystr path: array}``, e.g. an open ``state.npz``; only those
+    branches' leaves are read) -> {branch: ``state_dict``}: the student and
+    the teacher as ``SSLMetaArch.student`` / ``.teacher`` (each with its
+    own architecture and heads), the Gram branch as ``SSLMetaArch.gram``.
+    A branch the state lacks is left out."""
+    want = {("params", b) for b in branches}
+    tree = _keystr_tree({k: flat[k] for k in flat if keystr_path(k)[:2] in want})
+    params = tree.get("params", {})
+    out = meta_state_dicts_from_jax({b: v for b, v in params.items() if b != "gram"})
+    if "gram" in params:
+        out["gram"] = {f"backbone.{k}": v for k, v in
+                       state_dict_from_jax(params["gram"]["backbone"]).items()}
+    return out
 
 
 def train_state_from_jax(flat: Mapping[str, Any]) -> dict:
@@ -211,19 +218,14 @@ def train_state_from_jax(flat: Mapping[str, Any]) -> dict:
     count, adam_count = int(np.asarray(opt["count"])), int(np.asarray(opt["adam"]["count"]))
     if count != adam_count:
         raise ValueError(f"schedule count {count} != Adam count {adam_count}")
-    out = meta_state_dicts_from_jax({"student": params["student"],
-                                     "teacher": params["teacher"]})
     moments = meta_state_dicts_from_jax({"mu": opt["adam"]["mu"],
                                          "nu": opt["adam"]["nu"]})
     centers = {k: _to_torch(v, False) for k, v in tree["center_state"].items()}
     lowp = ({k: lowp_rings_from_jax(v) for k, v in tree["lowp"].items()}
             if isinstance(tree.get("lowp"), Mapping) else {})
-    gram = ({"gram": {f"backbone.{k}": v for k, v in
-                      state_dict_from_jax(params["gram"]["backbone"]).items()}}
-            if "gram" in params else {})
-    return {**out, **moments, "center_state": centers, "count": count,
-            "step": int(np.asarray(tree["step"])), **({"lowp": lowp} if lowp else {}),
-            **gram}
+    return {**params_state_dicts_from_jax(flat), **moments, "center_state": centers,
+            "count": count, "step": int(np.asarray(tree["step"])),
+            **({"lowp": lowp} if lowp else {})}
 
 
 def lowp_rings_from_jax(tree: Mapping) -> dict[str, torch.Tensor]:

@@ -99,19 +99,25 @@ def remat_mode(cfg) -> str:
     return remat
 
 
-def build_backbone(cfg, *, device="cuda", seed: int = 0) -> DinoVisionTransformer:
-    """The configured (teacher/serve) ViT with a seeded random init, in the
-    policy's parameter dtype, on ``device``. The init is drawn on the CPU
-    from a ``torch.Generator`` seeded with ``seed``, so the weights are the
-    same whatever the device."""
-    dev = resolve_device(device)
+def vit_ctor(cfg):
+    """The constructor of ``student.arch``; ConvNeXt and unknown archs
+    raise."""
     arch = cfg.student.arch
     if arch.startswith("convnext"):
         raise NotImplementedError(
             f"student.arch={arch!r}: ConvNeXt is not ported yet (tail slice)")
     if arch not in ARCHS:
         raise ValueError(f"unknown arch {arch!r}; available: {sorted(ARCHS)}")
-    model = ARCHS[arch](**backbone_kwargs_from_cfg(cfg))
+    return ARCHS[arch]
+
+
+def build_backbone(cfg, *, device="cuda", seed: int = 0) -> DinoVisionTransformer:
+    """The configured (teacher/serve) ViT with a seeded random init, in the
+    policy's parameter dtype, on ``device``. The init is drawn on the CPU
+    from a ``torch.Generator`` seeded with ``seed``, so the weights are the
+    same whatever the device."""
+    dev = resolve_device(device)
+    model = vit_ctor(cfg)(**backbone_kwargs_from_cfg(cfg))
     model.init_weights(torch.Generator().manual_seed(seed))
     policy = Policy.from_cfg(cfg.compute_precision)
     return model.to(device=dev, dtype=policy.param_dtype).eval()
@@ -126,10 +132,24 @@ def build_model_for_eval(cfg, ckpt_dir: str | None = None, *, device="cuda",
     ``meta_weights`` (a Meta release ``state_dict``, or the path of its
     file) those weights, converted and loaded strictly
     (``interop/torch_convert.py``); with neither, the seeded random init of
-    ``build_backbone``."""
+    ``build_backbone``. From a checkpoint the model is built on the
+    ``meta`` device and takes the checkpoint's tensors on ``device``
+    directly, with no draws on the host."""
     if ckpt_dir and meta_weights is not None:
         raise ValueError("pass ckpt_dir or meta_weights, not both")
     dev = resolve_device(device)
+    if ckpt_dir:  # built on the meta device: the checkpoint's tensors, no host draws
+        from dinov3_tpu_torch.checkpoint import teacher_backbone_state_dict
+
+        step, state_dict = teacher_backbone_state_dict(ckpt_dir)
+        with torch.device("meta"):
+            model = vit_ctor(cfg)(**backbone_kwargs_from_cfg(cfg))
+        dtype = Policy.from_cfg(cfg.compute_precision).param_dtype
+        model.load_state_dict({k: v.to(device=dev, dtype=dtype, copy=True)
+                               for k, v in state_dict.items()}, strict=True, assign=True)
+        logging.getLogger(LOGGER_NAME).info(
+            "eval model: EMA teacher backbone of step %d from %s", step, ckpt_dir)
+        return model.requires_grad_(False).eval()
     model = build_backbone(cfg, device="cpu", seed=seed)
     if meta_weights is not None:
         from dinov3_tpu_torch.interop.torch_convert import (
@@ -142,18 +162,11 @@ def build_model_for_eval(cfg, ckpt_dir: str | None = None, *, device="cuda",
         load_backbone_from_meta(model, sd, strict=True)
         logging.getLogger(LOGGER_NAME).info("eval model: Meta-layout weights (%d entries)",
                                             len(sd))
-    if ckpt_dir:
-        from dinov3_tpu_torch.checkpoint import teacher_backbone_state_dict
-
-        step, state_dict = teacher_backbone_state_dict(ckpt_dir)
-        model.load_state_dict(state_dict, strict=True)
-        logging.getLogger(LOGGER_NAME).info(
-            "eval model: EMA teacher backbone of step %d from %s", step, ckpt_dir)
     return model.requires_grad_(False).to(dev)
 
 
 __all__ = [
     "ARCHS", "DinoVisionTransformer", "backbone_kwargs_from_cfg",
-    "build_backbone", "build_model_for_eval", "remat_mode", "vit_large",
+    "build_backbone", "build_model_for_eval", "remat_mode", "vit_ctor", "vit_large",
     "vit_test",
 ]

@@ -23,7 +23,9 @@ guarded by ``warn_cache_memory`` (``configs/config.py``).
 from __future__ import annotations
 
 import hashlib
+import os
 from collections import OrderedDict
+from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 
@@ -38,24 +40,34 @@ def image_key(image) -> str:
     return h.hexdigest()
 
 
-def weights_fingerprint(model_or_state) -> str:
-    """sha256 over a serving model's ``state_dict`` (or a ``state_dict``):
-    each entry's name, dtype, shape and bytes in order. Any weight change
-    (a new checkpoint, int8 codes and scales in place of bf16 weights)
-    gives a new fingerprint and a cold cache for that engine. bf16 has no
-    numpy type, so every tensor hashes through its bytes
-    (``.view(torch.uint8)``). The reference hashes flax paths, so the two
-    packages' fingerprints differ; each is stable."""
+def _tensor_digest(t) -> bytes:
+    """sha256 of one tensor: its shape and dtype, then its bytes (bf16 has
+    no numpy type, so every tensor hashes through ``.view(torch.uint8)``)."""
     import torch
 
+    t = t.detach().to("cpu").contiguous()
+    h = hashlib.sha256(repr((tuple(t.shape), str(t.dtype))).encode())
+    h.update(t.reshape(-1).view(torch.uint8).numpy())  # hashed in place
+    return h.digest()
+
+
+def weights_fingerprint(model_or_state) -> str:
+    """sha256 over a serving model's ``state_dict`` (or a ``state_dict``):
+    each entry's name and the digest of its shape, dtype and bytes, in
+    order. Any weight change (a new checkpoint, int8 codes and scales in
+    place of bf16 weights) gives a new fingerprint and a cold cache for
+    that engine. The entries are hashed on a pool of threads (``hashlib``
+    releases the interpreter's lock over large buffers): a ViT-7B serving
+    tree is 13.4 GB. The reference hashes flax paths, so the two packages'
+    fingerprints differ; each is stable."""
     state = (model_or_state.state_dict()
              if hasattr(model_or_state, "state_dict") else model_or_state)
+    with ThreadPoolExecutor(max_workers=min(8, os.cpu_count() or 1)) as pool:
+        digests = list(pool.map(_tensor_digest, state.values()))
     h = hashlib.sha256()
-    for name, t in state.items():
-        t = t.detach().to("cpu").contiguous()
+    for name, digest in zip(state, digests):
         h.update(name.encode())
-        h.update(repr((tuple(t.shape), str(t.dtype))).encode())
-        h.update(t.reshape(-1).view(torch.uint8).numpy().tobytes())
+        h.update(digest)
     return h.hexdigest()[:16]
 
 

@@ -201,6 +201,7 @@ class PackedServeEngine(_Admission):
                      f"{floor['waste']:.0%})")
         self._step = make_serve_step(model, layout.max_segments_per_row,
                                      patch_features=self.patch_features)
+        self.step_builds = 1  # the engine's one fixed-shape step
         self.packs_run = 0
         self.last_pad_waste: float | None = None
         self._waste_used = 0
@@ -211,8 +212,9 @@ class PackedServeEngine(_Admission):
 
     @property
     def compile_count(self) -> int:
-        """Distinct programs the engine runs: one fixed-shape step."""
-        return 1
+        """Distinct programs the engine runs: its step builds, one
+        fixed-shape step."""
+        return self.step_builds
 
     def flush(self) -> list[ServeResponse]:
         """Run ONE pack off the queue (callers loop while queue_len)."""

@@ -9,7 +9,8 @@ from the schedules at the update count, and lm, wm its multipliers:
     d   <- (mu / bc1) / (sqrt(nu / bc2) + eps) + wd * wm * p
     p   <- p - lr * lm * d      (the last-layer lr for the prototypes)
     t   <- m t + (1 - m) p      (the teacher, from the updated student)
-with bc = 1 - b ** count. The arithmetic runs as ``torch._foreach_*``
+with bc = 1 - b ** count. Under distillation (``ema=False``) the teacher
+is frozen and the last line is skipped. The arithmetic runs as ``torch._foreach_*``
 passes over all parameters at once. The parameters, moments and teacher
 are updated in place; the update direction and the Adam denominator are
 temporaries of one parameter set each.
@@ -51,13 +52,15 @@ def ema_(teacher_params, student_params, momentum: float) -> None:
 
 class ScheduledAdamW:
     """The update of one student (an ``nn.Module`` whose top-level children
-    are the submodels) into its teacher, with the schedules' lr and wd."""
+    are the submodels) into its teacher, with the schedules' lr and wd;
+    ``ema=False`` leaves the teacher as it is (a frozen distillation
+    teacher)."""
 
     def __init__(self, student: torch.nn.Module, schedules, *,
                  layerwise_decay: float = 1.0, patch_embed_lr_mult: float = 1.0,
                  dino_head_wd_multiplier: float = 1.0, b1: float = 0.9,
                  b2: float = 0.999, eps: float = 1e-8,
-                 clip_grad: float | None = 3.0):
+                 clip_grad: float | None = 3.0, ema: bool = True):
         named = list(student.named_parameters())
         self.names = [n for n, _ in named]
         mult = build_multipliers(
@@ -70,6 +73,7 @@ class ScheduledAdamW:
         self.schedules = schedules
         self.b1, self.b2, self.eps = b1, b2, eps
         self.clip_grad = clip_grad
+        self.ema = ema
 
     def init_state(self, student: torch.nn.Module) -> AdamWState:
         params = [p for _, p in student.named_parameters()]
@@ -83,7 +87,6 @@ class ScheduledAdamW:
         without one counts as a zero gradient); returns the per-submodel
         pre-clip gradient norms."""
         params = [p for _, p in student.named_parameters()]
-        t_params = [p for _, p in teacher.named_parameters()]
         grads = [p.grad if p.grad is not None else torch.zeros_like(p)
                  for p in params]
         norms = per_submodel_norms(self.names, grads)
@@ -119,5 +122,6 @@ class ScheduledAdamW:
             for lm, last in zip(self.lr_mult, self.is_last)])
         torch._foreach_add_(params, direction)
         del direction
-        ema_(t_params, params, momentum)
+        if self.ema:
+            ema_([p for _, p in teacher.named_parameters()], params, momentum)
         return norms

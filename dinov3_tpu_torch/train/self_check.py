@@ -1,7 +1,9 @@
 """One-batch training self-check (``dinov3_tpu/train/self_check.py``): two
 real steps on one batch, then whether every part of the step moved: each
 loss finite, each student submodule updated, each teacher submodule moved
-through the EMA, and the step counter advanced by 2."""
+through the EMA (under distillation instead: the frozen teacher
+unchanged, ``distillation_teacher_frozen``), the frozen Gram branch
+unchanged, and the step counter advanced by 2."""
 
 from __future__ import annotations
 
@@ -34,6 +36,7 @@ def run_self_check(setup, batch) -> dict:
     state0 = setup.state
     step0 = state0.step
     student0, teacher0 = _snapshot(meta.student), _snapshot(meta.teacher)
+    gram0 = _snapshot(meta.gram) if meta.gram is not None else None
     state1, _ = setup.step_fn(state0, batch, setup.scalars(0))
     state2, metrics2 = setup.step_fn(state1, batch, setup.scalars(1))
 
@@ -43,8 +46,17 @@ def run_self_check(setup, batch) -> dict:
             results[f"finite:{key}"] = math.isfinite(value)
     for name, child in meta.student.named_children():
         results[f"student_updates:{name}"] = _mean_abs_change(student0[name], child) > 0.0
-    for name, child in meta.teacher.named_children():
-        results[f"teacher_ema_moves:{name}"] = _mean_abs_change(teacher0[name], child) > 0.0
+    if meta.distillation:  # a frozen pretrained teacher, not an EMA
+        results["distillation_teacher_frozen"] = all(
+            _mean_abs_change(teacher0[name], child) == 0.0
+            for name, child in meta.teacher.named_children())
+    else:
+        for name, child in meta.teacher.named_children():
+            results[f"teacher_ema_moves:{name}"] = _mean_abs_change(teacher0[name], child) > 0.0
+    if gram0 is not None:  # the Gram anchor moves only at a refresh
+        results["gram_frozen_between_refreshes"] = all(
+            _mean_abs_change(gram0[name], child) == 0.0
+            for name, child in meta.gram.named_children())
     results["step_counter_advances"] = state2.step == step0 + 2
 
     width = max(len(k) for k in results)

@@ -1,6 +1,7 @@
 """Training setup on one device (``dinov3_tpu/train/setup.py``
 ``build_train_setup``): the meta-architecture with seeded weights, the
-schedules, the optimizer state, the step, the telemetry plan (the device
+schedules, the optimizer state (the student's; a distillation teacher
+takes none and no EMA), the step, the telemetry plan (the device
 metrics ring, ``telemetry.async_metrics``) and, under an fp8 / int8
 ``train.low_precision.arm``, the amax rings with the set-up drift probe."""
 
@@ -71,11 +72,24 @@ def build_train_setup(cfg, example_batch: dict, *, device="cuda",
     card raises; ``device="cpu"`` runs the kernels' plain versions). The
     weights are drawn on the CPU from ``seed``, so they do not depend on
     the device; the step's drop-path plans are keyed by (seed,
-    iteration). ``example_batch`` is checked against ``optim.accum_steps``
-    (it must divide the image batch; raises ``ValueError``). ``n_blocks``
-    cuts the configured depth (None keeps it)."""
+    iteration). A distillation teacher is drawn on ``device`` instead (a
+    ViT-7B's 6.7 B draws), from ``seed``, and then usually restored from
+    its run (``train/distillation.py load_teacher_params``).
+    ``example_batch`` is checked against ``optim.accum_steps``
+    (it must divide the image batch; raises ``ValueError``) and, under
+    ``distillation.teacher_source=serve``, must carry the teacher planes
+    (``teacher_feature_example``; raises ``ValueError``). ``n_blocks``
+    cuts the configured depth (None keeps it; a distillation teacher keeps
+    its recipe's)."""
     dev = resolve_device(device)
-    meta = SSLMetaArch(cfg, seed=seed, n_blocks=n_blocks)
+    meta = SSLMetaArch(cfg, seed=seed, n_blocks=n_blocks, teacher_device=dev)
+    if meta.teacher_source == "serve" and "teacher_cls" not in example_batch:
+        # the serve arm reads the teacher's features from the batch: fail
+        # at set-up, not at the first step
+        raise ValueError(
+            "distillation.teacher_source=serve: example_batch must carry "
+            "teacher_cls/teacher_patches planes "
+            "(train/distillation.py teacher_feature_example)")
     accum = int(cfg.optim.get("accum_steps", 1) or 1)
     # the microbatch split is fixed by accum_steps: fail here, not
     # mid-step (a batch whose local crops do not pack runs two passes)
@@ -87,7 +101,8 @@ def build_train_setup(cfg, example_batch: dict, *, device="cuda",
         meta.student, schedules, layerwise_decay=o.layerwise_decay,
         patch_embed_lr_mult=o.patch_embed_lr_mult,
         dino_head_wd_multiplier=o.dino_head_wd_multiplier,
-        b1=o.adamw_beta1, b2=o.adamw_beta2, clip_grad=o.clip_grad)
+        b1=o.adamw_beta1, b2=o.adamw_beta2, clip_grad=o.clip_grad,
+        ema=not meta.distillation)
     state = TrainState(meta=meta, opt_state=optimizer.init_state(meta.student))
     lp = lowp_cfg(cfg)
     drift = None

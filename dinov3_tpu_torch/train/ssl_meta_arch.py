@@ -11,6 +11,17 @@ teacher, each an ``nn.ModuleDict`` of ``backbone`` (the ViT),
 student and gets no gradients. Parameters are fp32 masters; the backbones
 and the heads' MLPs compute in ``compute_precision.compute_dtype``.
 
+Under ``distillation.enabled`` the teacher is a frozen model of its own
+recipe (``train/distillation.py resolve_distillation_cfg``): its
+backbone, and heads whose widths are the teacher recipe's (the prototype
+counts are the student's), drawn from a stream of their own on
+``teacher_device`` (the run's device: a ViT-7B teacher is 6.7 B draws),
+then restored from the teacher's run (``load_teacher_params``). The EMA
+leaves it as it is, and the student forwards without masks (iBOT still
+reads the masked positions). Under ``distillation.teacher_source=serve``
+the step reads the teacher's features from the batch (``teacher_cls``,
+``teacher_patches``, made by ``TeacherServer``) instead of forwarding it.
+
 Under ``gram.use_loss`` the Gram loss anchors the student's patch
 similarities to a Gram teacher's (``losses/gram_loss.py``): with
 ``gram.ema_teacher`` the EMA teacher's patches, else a frozen ``gram``
@@ -42,6 +53,7 @@ from torch import nn
 from dinov3_tpu_torch.configs.config import (
     check_train_slice,
     crop_packing_wished,
+    distill_teacher_source,
     rng_plan_wished,
     streaming_targets_wished,
 )
@@ -67,30 +79,36 @@ from dinov3_tpu_torch.train.optimizer import ema_
 logger = logging.getLogger(LOGGER_NAME)
 
 
-def _head(cfg_section, in_dim: int, dtype) -> DINOHead:
+def _head(cfg_section, in_dim: int, dtype, out_dim: int | None = None) -> DINOHead:
     return DINOHead(
-        in_dim, cfg_section.head_n_prototypes,
+        in_dim, cfg_section.head_n_prototypes if out_dim is None else out_dim,
         hidden_dim=cfg_section.head_hidden_dim,
         bottleneck_dim=cfg_section.head_bottleneck_dim,
         nlayers=cfg_section.head_nlayers,
         norm_last_layer=cfg_section.head_norm_last_layer, dtype=dtype)
 
 
-def _uninitialized(build, *args, **kwargs) -> nn.Module:
-    """``build(*args, **kwargs)`` on the meta device, then given CPU
-    storage: a module whose parameters (all it holds) a seeded
+def _uninitialized(build, *args, device="cpu", **kwargs) -> nn.Module:
+    """``build(*args, **kwargs)`` on the meta device, then given storage on
+    ``device``: a module whose parameters (all it holds) a seeded
     ``init_weights`` or a ``load_state_dict`` fills, without a default
     init pass over them first (seconds a block at 7B's width)."""
     with torch.device("meta"):
         module = build(*args, **kwargs)
-    return module.to_empty(device="cpu")
+    return module.to_empty(device=device)
+
+
+# the distillation teacher's draws: a generator stream of its own
+TEACHER_STREAM = 7 << 32
 
 
 class SSLMetaArch(nn.Module):
-    def __init__(self, cfg, seed: int = 0, n_blocks: int | None = None):
+    def __init__(self, cfg, seed: int = 0, n_blocks: int | None = None,
+                 teacher_device="cpu"):
         """``n_blocks`` cuts the configured depth (card-vs-CPU checks at
         full width); None keeps it (``student.n_blocks``, else the
-        arch's)."""
+        arch's). A distillation teacher keeps its own recipe's depth and
+        is drawn on ``teacher_device``; everything else on the CPU."""
         super().__init__()
         check_train_slice(cfg)
         arch = cfg.student.arch
@@ -115,6 +133,10 @@ class SSLMetaArch(nn.Module):
         # the step plan (default) or the per-pass, per-block generators
         self.rng_plan = rng_plan_wished(cfg)
         self._warned_unpacked = False
+        self.distillation = bool(cfg.distillation.enabled)
+        # where the teacher's features come from (serve: the batch planes)
+        self.teacher_source = (distill_teacher_source(cfg) if self.distillation
+                               else "in_step")
         dtype = Policy.from_cfg(cfg.compute_precision).compute_dtype
         depth = {} if n_blocks is None else {"n_blocks": n_blocks}
         backbone = _uninitialized(ARCHS[arch],
@@ -135,13 +157,16 @@ class SSLMetaArch(nn.Module):
         self.student["ibot_head"].init_weights(g)
         self.student.float()
         teacher_kwargs = {**backbone_kwargs_from_cfg(cfg, teacher=True), **depth}
-        teacher_backbone = _uninitialized(ARCHS[arch], **teacher_kwargs)
-        self.teacher = nn.ModuleDict({
-            "backbone": teacher_backbone,
-            "dino_head": copy.deepcopy(self.student["dino_head"]),
-            "ibot_head": copy.deepcopy(self.student["ibot_head"]),
-        }).float()
-        self.teacher.load_state_dict(self.student.state_dict())
+        if self.distillation:
+            self.teacher = self._distillation_teacher(dtype, seed, teacher_device)
+        else:
+            teacher_backbone = _uninitialized(ARCHS[arch], **teacher_kwargs)
+            self.teacher = nn.ModuleDict({
+                "backbone": teacher_backbone,
+                "dino_head": copy.deepcopy(self.student["dino_head"]),
+                "ibot_head": copy.deepcopy(self.student["ibot_head"]),
+            }).float()
+            self.teacher.load_state_dict(self.student.state_dict())
         self.teacher.requires_grad_(False)
         self.gram_enabled = bool(cfg.gram.use_loss)
         self.gram = None  # with gram.ema_teacher the anchor is the teacher's patches
@@ -154,6 +179,32 @@ class SSLMetaArch(nn.Module):
             else None)
         self.gram_weight_schedule = self._weight_schedule(
             cfg.gram.get("loss_weight_schedule") if self.gram_enabled else None)
+
+    def _distillation_teacher(self, dtype, seed: int, device) -> nn.ModuleDict:
+        """The frozen teacher of ``distillation.full_cfg_path``: its
+        backbone at its recipe's depth and width, its heads at its
+        recipe's widths with the student's prototype counts, drawn on
+        ``device`` from ``seed`` on the ``TEACHER_STREAM``."""
+        from dinov3_tpu_torch.models import vit_ctor
+        from dinov3_tpu_torch.train.distillation import resolve_distillation_cfg
+
+        tcfg = resolve_distillation_cfg(self.cfg)
+        dev = torch.device(device)
+        backbone = _uninitialized(vit_ctor(tcfg), device=dev,
+                                  **backbone_kwargs_from_cfg(tcfg, teacher=True))
+        d = backbone.embed_dim
+        teacher = nn.ModuleDict({
+            "backbone": backbone,
+            "dino_head": _uninitialized(_head, tcfg.dino, d, dtype, device=dev,
+                                        out_dim=self.cfg.dino.head_n_prototypes),
+            "ibot_head": _uninitialized(_head, tcfg.ibot, d, dtype, device=dev,
+                                        out_dim=self.cfg.ibot.head_n_prototypes),
+        })
+        g = torch.Generator(device=dev).manual_seed(seed + TEACHER_STREAM)
+        backbone.init_weights(g)
+        teacher["dino_head"].init_weights(g)
+        teacher["ibot_head"].init_weights(g)
+        return teacher.float()
 
     def _weight_schedule(self, s):
         """A per-iteration loss-weight ramp from a {start, peak, end,
@@ -184,13 +235,37 @@ class SSLMetaArch(nn.Module):
                 "ibot_center": torch.zeros(1, self.cfg.ibot.head_n_prototypes, **kw)}
 
     @torch.no_grad()
-    def get_teacher_output(self, batch: dict, teacher_temp: float, state: dict):
-        """The EMA teacher over the global crops, then its targets:
-        (targets, new center state)."""
+    def teacher_backbone_features(self, batch: dict):
+        """The teacher backbone over the global crops: (cls [2B, D_t],
+        patches [2B, T, D_t]) in its compute dtype; what the serve arm
+        computes outside the step."""
         out = self.teacher["backbone"](batch["global_crops"])
-        return self.teacher_targets_from_features(
-            out["x_norm_clstoken"], out["x_norm_patchtokens"], batch,
-            teacher_temp, state)
+        return out["x_norm_clstoken"], out["x_norm_patchtokens"]
+
+    @torch.no_grad()
+    def get_teacher_output(self, batch: dict, teacher_temp: float, state: dict):
+        """The teacher's features over the global crops, then its targets:
+        (targets, new center state). The features are the teacher
+        backbone's, or under ``distillation.teacher_source=serve`` the
+        batch's fp32 ``teacher_cls`` / ``teacher_patches`` planes cast back
+        to the compute dtype (fp32 holds bf16 values exactly, so the
+        in-step features fed through the planes give the same targets bit
+        for bit)."""
+        if self.teacher_source == "serve":
+            if "teacher_cls" not in batch or "teacher_patches" not in batch:
+                raise ValueError(
+                    "distillation.teacher_source=serve needs teacher_cls/"
+                    "teacher_patches batch planes (train/distillation.py "
+                    "TeacherServer.annotate; teacher_feature_example for "
+                    "the set-up's batch)")
+            with torch.profiler.record_function("distill_fanout"):
+                dt = self.teacher["backbone"].dtype
+                cls = batch["teacher_cls"].to(dt)
+                patches = batch["teacher_patches"].to(dt)
+        else:
+            cls, patches = self.teacher_backbone_features(batch)
+        return self.teacher_targets_from_features(cls, patches, batch, teacher_temp,
+                                                  state)
 
     @torch.no_grad()
     def teacher_targets_from_features(self, cls, patches, batch: dict,
@@ -296,13 +371,15 @@ class SSLMetaArch(nn.Module):
         B = g.shape[0] // n_g
         plan = plan or {}
         bb = self.student["backbone"]
+        # a distilled student sees its global crops unmasked
+        masks = None if self.distillation else batch["masks"]
         if self.packs(batch):
-            out = bb(g, batch["masks"], train=True, plan=plan.get("packed", plan),
+            out = bb(g, masks, train=True, plan=plan.get("packed", plan),
                      local_crops=l)
             g_cls, g_patch = out["x_norm_clstoken"], out["x_norm_patchtokens"]
             l_cls = out["local_cls"]
         else:
-            g_out = bb(g, batch["masks"], train=True, plan=plan.get("global"))
+            g_out = bb(g, masks, train=True, plan=plan.get("global"))
             l_out = bb(l, None, train=True, plan=plan.get("local"), crop_kind="local")
             g_cls, g_patch = g_out["x_norm_clstoken"], g_out["x_norm_patchtokens"]
             l_cls = l_out["x_norm_clstoken"]
@@ -456,6 +533,9 @@ class SSLMetaArch(nn.Module):
 
     @torch.no_grad()
     def update_ema(self, momentum: float) -> None:
-        """teacher <- m * teacher + (1 - m) * student, in place."""
+        """teacher <- m * teacher + (1 - m) * student, in place; a
+        distillation teacher stays as it is."""
+        if self.distillation:
+            return
         ema_(list(self.teacher.parameters()), list(self.student.parameters()),
              momentum)

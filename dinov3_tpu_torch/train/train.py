@@ -65,11 +65,25 @@ teacher (``train/gram_refresh.py``): a fresh run loads it from
 after the iterations its cadence names (the ``gram_refresh`` span), the
 count rebuilt on resume; the checkpoints carry it.
 
-Refused at start, each naming the ROADMAP item it waits for: distillation, multidistillation, high-res fine-tuning and
-pretrained weights (M10), sharded meshes (M7,
-``configs/config.py``) and an elastic ``--resume-topology`` (M12). There is no preemption handler
-(M12): a signal ends the run, and the next one resumes from the last
-finalized checkpoint.
+Under ``distillation.enabled`` the student distils from a frozen teacher
+of its own recipe (``distillation.full_cfg_path``), loaded on a fresh run
+from its run's checkpoint (``distillation.checkpoint_path``,
+``train/distillation.py``); with ``distillation.teacher_source=serve``
+the process-shared ``TeacherServer`` annotates each batch with the
+teacher's features while the step runs (the ``teacher_serve`` span), and
+the result reports its counters. A fresh run's other loads, in JAX's
+order after a resume and a distillation teacher: ``hrft.checkpoint_path``
+(parameters only, ``Checkpointer.restore_params_only``), then the
+warm starts ``student.pretrained_weights`` /
+``student.resume_from_teacher_chkpt`` (``train/pretrained.py``).
+``multidistillation.enabled`` routes this process to its student
+(``train/multidistillation.py``) at world size 1; a spec over more ranks
+is refused, as students co-hosted in several processes wait (ROADMAP M7).
+
+Refused at start, each naming the ROADMAP item it waits for: sharded
+meshes (M7, ``configs/config.py``) and an elastic ``--resume-topology``
+(M12). There is no preemption handler (M12): a signal ends the run, and
+the next one resumes from the last finalized checkpoint.
 """
 
 from __future__ import annotations
@@ -89,7 +103,7 @@ import torch
 
 from dinov3_tpu_torch.checkpoint import Checkpointer
 from dinov3_tpu_torch.configs import global_batch_size, load_config, setup_job
-from dinov3_tpu_torch.configs.config import anatomy_wished
+from dinov3_tpu_torch.configs.config import anatomy_wished, distill_teacher_source
 from dinov3_tpu_torch.data import (
     CombineDataLoader,
     SyntheticDataset,
@@ -188,18 +202,21 @@ def refuse_waiting(cfg, args, total_iters: int) -> None:
         raise NotImplementedError(
             f"--resume-topology {args.resume_topology}: elastic resume waits "
             "(ROADMAP M12)")
-    s = cfg.student
-    waits = [
-        (bool(cfg.distillation.enabled), "distillation waits (ROADMAP M10)"),
-        (bool(cfg.multidistillation.enabled),
-         "multidistillation waits (ROADMAP M10)"),
-        (bool(cfg.hrft.enabled), "hrft (high-res fine-tuning) waits (ROADMAP M10)"),
-        (bool(s.get("pretrained_weights") or s.get("resume_from_teacher_chkpt")),
-         "pretrained student weights wait (ROADMAP M10)"),
-    ]
-    for refused, msg in waits:
-        if refused:
-            raise NotImplementedError(msg)
+    refuse_multiprocess_multidistillation(cfg)
+
+
+def refuse_multiprocess_multidistillation(cfg) -> None:
+    """A multidistillation spec over more than one rank needs students
+    co-hosted in several processes, which wait (ROADMAP M7); the port
+    routes a spec covering [0, 1)."""
+    md = cfg.multidistillation
+    if not md.enabled:
+        return
+    world = max((int(s["ranks_range"][1]) for s in md.students), default=1)
+    if world > 1:
+        raise NotImplementedError(
+            f"multidistillation over {world} ranks: students in several processes "
+            "wait (ROADMAP M7); on one card the spec covers ranks [0, 1)")
 
 
 def profile_window(args, total_iters: int) -> tuple[int, int] | None:
@@ -263,8 +280,8 @@ def build_data_iterator(cfg, batch_size: int, start_iter: int = 0,
 def resolved_engine(setup) -> dict:
     """What the step resolved from the config: the target engine
     (streaming or materialized), the centering, the K-tile cap, the
-    student's activation checkpointing, the accumulation steps and the
-    Gram anchor's teacher."""
+    student's activation checkpointing, the accumulation steps, the
+    Gram anchor's teacher and the distillation teacher's source."""
     meta = setup.meta
     return {"targets": "streaming" if meta.streaming_targets else "materialized",
             "centering": meta.centering, "k_tile": meta.loss_k_tile,
@@ -277,6 +294,8 @@ def resolved_engine(setup) -> dict:
             # the Gram anchor's teacher: a frozen branch, the EMA teacher, or off
             "gram": ("off" if not meta.gram_enabled
                      else "ema_teacher" if meta.gram is None else "frozen"),
+            # a frozen distillation teacher's features: in the step, served, or off
+            "distillation": meta.teacher_source if meta.distillation else "off",
             "metrics": "ring" if setup.telemetry is not None else "per-step read"}
 
 
@@ -354,10 +373,18 @@ def _do_train(cfg, args, device, B: int, total_iters: int, prof) -> dict:
     recorder = metric_logger = None
     gc_times = _GcTimes()
     frozen = False
+    serve_teacher = (bool(cfg.distillation.enabled)
+                     and distill_teacher_source(cfg) == "serve")
     try:
         first = next(data_iter)
+        example = first
+        if serve_teacher:  # the step reads the teacher's planes from the batch
+            from dinov3_tpu_torch.train.distillation import teacher_feature_example
+
+            example = {**first, **teacher_feature_example(
+                cfg, int(first["global_crops"].shape[0]))}
         t0 = time.perf_counter()
-        setup = build_train_setup(cfg, first, device=device, seed=cfg.train.seed)
+        setup = build_train_setup(cfg, example, device=device, seed=cfg.train.seed)
         logger.info("device %s | batch %d | setup %.1f s", device, B,
                     time.perf_counter() - t0)
         if memory_on:
@@ -378,7 +405,8 @@ def _do_train(cfg, args, device, B: int, total_iters: int, prof) -> dict:
         if args.self_check:
             from dinov3_tpu_torch.train.self_check import run_self_check
 
-            results = run_self_check(setup, put_batch(first, device))
+            # before any load: zero teacher planes run the serve arm's step
+            results = run_self_check(setup, put_batch(example, device))
             return {"self_check_failures": sum(not v for v in results.values()),
                     **{f"check/{k}": v for k, v in results.items()},
                     "launches": {k: kern.launches for k, kern in KERNELS.items()}}
@@ -402,8 +430,36 @@ def _do_train(cfg, args, device, B: int, total_iters: int, prof) -> dict:
                                                 pin=device.type == "cuda")
                 first = next(data_iter)
             logger.info("resumed at iteration %d", start_iter)
-        else:  # a fresh run anchors its Gram teacher to a prior run's teacher
+        elif cfg.distillation.enabled and cfg.distillation.checkpoint_path:
+            from dinov3_tpu_torch.train.distillation import load_teacher_params
+
+            state = load_teacher_params(cfg, state)
+        elif cfg.hrft.enabled and cfg.hrft.checkpoint_path:
+            state = Checkpointer(cfg.hrft.checkpoint_path).restore_params_only(state)
+            logger.info("hrft: parameters loaded from %s", cfg.hrft.checkpoint_path)
+        elif (cfg.student.get("pretrained_weights")
+              or cfg.student.get("resume_from_teacher_chkpt")):
+            from dinov3_tpu_torch.train.pretrained import load_pretrained_weights
+
+            state = load_pretrained_weights(cfg, state)
+        if latest is None:  # a fresh run anchors its Gram teacher to a prior run's teacher
             state = load_gram_teacher(cfg, state)
+        teacher_server = None
+        if serve_teacher:
+            # the process-shared packed teacher engine and its cache, from
+            # the teacher's checkpoint, else from the state's teacher (cast
+            # to bf16 on the device it lies on)
+            from dinov3_tpu_torch.train.multidistillation import shared_teacher_server
+
+            t_srv = time.perf_counter()
+            path = cfg.distillation.checkpoint_path
+            teacher_server = (
+                shared_teacher_server(cfg, ckpt_dir=path, device=device) if path else
+                shared_teacher_server(
+                    cfg, teacher_params=setup.meta.teacher["backbone"].state_dict(),
+                    device=device))
+            result["teacher_server_s"] = time.perf_counter() - t_srv
+            logger.info("distillation: serve-backed teacher %s", teacher_server.stats())
         n_gram_updates = gram_updates_before(cfg, start_iter)
 
         logger.info("parameters:\n%s", format_parameter_counts(
@@ -469,6 +525,8 @@ def _do_train(cfg, args, device, B: int, total_iters: int, prof) -> dict:
                 raise RuntimeError(f"aborting: {worst} consecutive non-finite losses")
 
         host_sync_stats(reset=True)
+        if teacher_server is not None:
+            first = teacher_server.annotate(first)
         pending = put_batch(first, device)
         steps = metric_logger.log_every(
             tracer.wrap_iter(data_iter, start_iteration=start_iter), print_freq=10,
@@ -484,6 +542,11 @@ def _do_train(cfg, args, device, B: int, total_iters: int, prof) -> dict:
                     else:
                         state, step_metrics = setup.launch_fn(state, pending,
                                                               setup.scalars(it))
+                if teacher_server is not None:
+                    # the next batch's teacher planes: cache hits on the host,
+                    # misses packed through the engine behind the step
+                    with tracer.span("teacher_serve", it):
+                        raw = teacher_server.annotate(raw)
                 with tracer.span("h2d", it):
                     pending = put_batch(raw, device)  # queued behind the step
                 if memory_on and not compile_sampled:
@@ -560,6 +623,9 @@ def _do_train(cfg, args, device, B: int, total_iters: int, prof) -> dict:
     })
     if tracer.trace_path is not None:
         result["trace"] = tracer.trace_path
+    if teacher_server is not None:
+        result["teacher_serve"] = teacher_server.stats()
+        logger.info("serve-backed teacher: %s", result["teacher_serve"])
     if device.type == "cuda":
         result["peak_memory_gib"] = torch.cuda.max_memory_allocated(device) / 2 ** 30
     if recorder is not None:
@@ -582,17 +648,37 @@ def _do_train(cfg, args, device, B: int, total_iters: int, prof) -> dict:
     return result
 
 
+def do_train_multidistillation(cfg, args) -> dict:
+    """This process's student of the multidistillation spec
+    (``setup_multidistillation`` at rank 0 of a world of 1: the spec must
+    cover [0, 1)), trained with its own config into
+    ``<output-dir>/<name>``."""
+    from dinov3_tpu_torch.train.multidistillation import setup_multidistillation
+
+    refuse_multiprocess_multidistillation(cfg)
+    assignment = setup_multidistillation(
+        cfg, 0, 1, args.output_dir, extra_overrides=[o for o in args.opts if "=" in o])
+    return _run_logged(assignment.cfg, args, assignment.output_dir,
+                       f"multidistillation student {assignment.name!r} config")
+
+
+def _run_logged(cfg, args, out_dir: str, title: str) -> dict:
+    setup_job(cfg)
+    handlers = setup_logging(out_dir)
+    try:
+        logger.info("%s:\n%s", title, json.dumps(cfg.to_dict(), indent=1, default=str))
+        return do_train(cfg, args)
+    finally:
+        remove_handlers(handlers)
+
+
 def main(argv=None) -> dict:
     args = get_args_parser().parse_args(argv)
     cfg = load_config(args.config_file or None, overrides=list(args.opts), n_devices=1)
     cfg.train.output_dir = args.output_dir
-    setup_job(cfg)
-    handlers = setup_logging(args.output_dir)
-    try:
-        logger.info("config:\n%s", json.dumps(cfg.to_dict(), indent=1, default=str))
-        return do_train(cfg, args)
-    finally:
-        remove_handlers(handlers)
+    if cfg.multidistillation.enabled:
+        return do_train_multidistillation(cfg, args)
+    return _run_logged(cfg, args, args.output_dir, "config")
 
 
 if __name__ == "__main__":

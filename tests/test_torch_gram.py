@@ -64,8 +64,8 @@ def gram_state_dict(jgram) -> dict:
 
 def gram_world(extra=()):
     """The JAX meta-arch with the Gram loss on and perturbed student,
-    teacher and Gram weights, one batch, and the port's meta-arch holding
-    the same weights."""
+    teacher and Gram weights (no Gram branch under ``gram.ema_teacher``),
+    one batch, and the port's meta-arch holding the same weights."""
     from dinov3_tpu.data import make_synthetic_batch
     from dinov3_tpu.train.ssl_meta_arch import SSLMetaArch as JMeta
 
@@ -79,13 +79,17 @@ def gram_world(extra=()):
     batch = make_synthetic_batch(jcfg, B, seed=0)
     jbatch = {k: jnp.asarray(v) for k, v in batch.items()}
     params = jax.tree.map(np.asarray, jmeta.init_params(jax.random.key(0), jbatch))
-    assert set(params) == {"student", "teacher", "gram"}
-    params = {k: _noisy(v, seed) for (k, v), seed in zip(sorted(params.items()), (4, 1, 2))}
+    ema = bool(jcfg.gram.ema_teacher)
+    assert set(params) == {"student", "teacher"} | (set() if ema else {"gram"})
+    seeds = {"gram": 4, "student": 1, "teacher": 2}
+    params = {k: _noisy(v, seeds[k]) for k, v in params.items()}
     tmeta = SSLMetaArch(tcfg)
+    assert (tmeta.gram is None) == ema
     sds = meta_state_dicts_from_jax({k: params[k] for k in ("student", "teacher")})
     tmeta.student.load_state_dict(sds["student"])
     tmeta.teacher.load_state_dict(sds["teacher"])
-    tmeta.gram.load_state_dict(gram_state_dict(params["gram"]))
+    if not ema:
+        tmeta.gram.load_state_dict(gram_state_dict(params["gram"]))
     return {"jcfg": jcfg, "tcfg": tcfg, "jmeta": jmeta, "tmeta": tmeta,
             "batch": batch, "jbatch": jbatch, "params": params}
 
@@ -213,9 +217,13 @@ def test_refresh_arithmetic_matches_jax(switches):
 # ---------------- the meta-arch ----------------
 
 @pytest.mark.parametrize("extra", [["gram.img_level=true"],
-                                   ["gram.tokens_used=masked", "gram.compute_stats=true"]],
-                         ids=["img_level", "masked"])
+                                   ["gram.tokens_used=masked", "gram.compute_stats=true"],
+                                   ["gram.ema_teacher=true", "gram.img_level=true"],
+                                   ["gram.ema_teacher=true", "gram.img_level=false"]],
+                         ids=["img_level", "masked", "ema_teacher-img_level", "ema_teacher"])
 def test_meta_forward_and_every_student_grad_match_jax_with_gram(extra):
+    """With ``gram.ema_teacher`` there is no Gram branch: the anchor is the
+    EMA teacher's patches on both sides."""
     from dinov3_tpu_torch.interop import meta_state_dicts_from_jax
     from dinov3_tpu_torch.rng import plan_to_device
     from dinov3_tpu_torch.train import put_batch
@@ -225,8 +233,9 @@ def test_meta_forward_and_every_student_grad_match_jax_with_gram(extra):
     plan = _jax_plan(jmeta, jbatch, 0)
 
     def loss(student):
+        frozen = {k: params[k] for k in ("teacher", "gram") if k in params}
         total, (d, _) = jmeta.forward(
-            student, {"teacher": params["teacher"], "gram": params["gram"]}, jbatch,
+            student, frozen, jbatch,
             teacher_temp=0.07, state=jmeta.init_state(),
             iteration=jnp.asarray(0, jnp.int32), rng_plan={"packed": plan})
         return total, d
@@ -246,7 +255,8 @@ def test_meta_forward_and_every_student_grad_match_jax_with_gram(extra):
         g = np.zeros_like(wg) if p.grad is None else _np(p.grad)
         np.testing.assert_allclose(g, wg, atol=1e-4 * max(np.abs(wg).max(), 1e-6),
                                    err_msg=n)
-    assert not any(p.requires_grad or p.grad is not None for p in tmeta.gram.parameters())
+    if tmeta.gram is not None:
+        assert not any(p.requires_grad or p.grad is not None for p in tmeta.gram.parameters())
 
 
 def test_gram_branch_starts_as_the_students_backbone_and_gets_no_optimizer_state():

@@ -423,11 +423,17 @@ def test_ref_losses_compare_against_a_file_the_jax_recorder_wrote(uninterrupted,
 
 
 # ids as they were before the three M11 flags and the two Gram-anchor
-# cases (now run, below) left the list
+# cases (now run, below) left the list. Distillation (M10) runs now
+# (tests/test_torch_distill.py): its two ids check what of it still waits,
+# multidistillation across processes (M7) and the hrft recipe's sequence
+# mesh (M8)
 @pytest.mark.parametrize("argv,extra,where", [
     pytest.param(["--resume-topology", "memory"], [], "M12", id="argv3-extra3-M12"),
-    pytest.param([], ["multidistillation.enabled=true"], "M10", id="argv4-extra4-M10"),
-    pytest.param([], ["hrft.enabled=true"], "M10", id="argv5-extra5-M10"),
+    pytest.param([], ["multidistillation.enabled=true",
+                      "multidistillation.students=[{name: a, config_path: x.yaml, "
+                      "ranks_range: [0, 1]}, {name: b, config_path: x.yaml, "
+                      "ranks_range: [1, 2]}]"], "M7", id="argv4-extra4-M10"),
+    pytest.param([], ["hrft.enabled=true", "parallel.seq=4"], "M8", id="argv5-extra5-M10"),
     pytest.param([], ["parallel.fsdp=8"], "M7", id="argv8-extra8-M7"),
 ])
 def test_trainer_refuses_what_waits_by_name(tmp_path, argv, extra, where):
