@@ -167,6 +167,30 @@ N. distillation at ViT-7B depth (``configs/train/vitl16_distilled.yaml``:
    teacher checkpoint written here: 4 iterations, a resume from the step-2
    save in a new process held by ``--ref-losses`` and bitwise, and
    ``--self-check`` reporting the frozen teacher (N3).
+O. the ConvNeXt family and the full-depth ViT-7B eval: the distilled
+   recipe with a ConvNeXt-L/16 student (``student.arch=convnext_large`` on
+   the command line; depths 3, 3, 27, 3, widths 192 to 1536) and its
+   40-block ViT-7B/16 teacher drawn on the card: K4 and K5 against their
+   plain versions at each stage's rows of the 2B = 32 global crops (C =
+   192, 384, 768, 1536) and K4 on the final norm's rows; the step through
+   ``build_train_setup`` + ``step_fn`` (a warm-up and 5 timed steps:
+   set-up s, ms, img/s, peak, K1-K5 launches pinned a step, every loss
+   finite; one step profiled by kernel class, the convolutions and the
+   copies as classes of their own) (O0); a step at ConvNeXt-L widths with
+   one block a stage, 4096 prototypes and B=2, on the card and on the CPU,
+   with its EMA ConvNeXt teacher and drop path at rate 0.2, and from a
+   1-block ViT-7B-width teacher, and the SSL state's checkpoint read back by ``build_model_for_eval``
+   (O1, each arm in a process of its own beside O3); eval extraction at
+   B=256, 224 px of ConvNeXt-L and of ``vit7b16_pretrain.yaml``'s
+   ViT-7B/16 at its 40 blocks, both drawn on the card by
+   ``build_model_for_eval`` (set-up s, img/s, the share of the bf16 cap
+   from counted operations, launches pinned a batch, a batch run twice
+   bit for bit), K1 and K4 at the
+   7B's eval shapes (O2); the trainer CLI
+   on O0's recipe at full depth with the small teacher of N3 (4
+   iterations, a save at 4, ``--dump-weights``): its launches, its
+   start-up split by stage, and ``build_model_for_eval`` on its checkpoint
+   against the dump, bit for bit (O3).
 
 Prints each phase's seconds, the kernel table as one JSON line, the card's name and power
 limit, and as its last line ``{"ok": true, "device": {...}}``. Any
@@ -1294,12 +1318,14 @@ def batch_copy_times(cfg, host_batch) -> None:
               f"({nbytes / copy_ms / 1e6:.1f} GB/s)")
 
 
-def profile_step(setup, state, host_batch, label: str = "E") -> dict:
+def profile_step(setup, state, host_batch, label: str = "E", extra_classes=()) -> dict:
     """Device time by kernel class over one training step whose batch is
     put on the card (``put_batch``, pinned) inside the recorded window,
     from torch.profiler device events (the tracer warmed up first); the
     wall time is that of the recorded step, tracer included. Returns the
-    wall and busy ms and the ms by class ({} without device events)."""
+    wall and busy ms and the ms by class ({} without device events).
+    ``extra_classes``: (name, name fragments) classes taken after K1-K5
+    and before the GEMMs (the convolutions of a ConvNeXt step)."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -1327,7 +1353,7 @@ def profile_step(setup, state, host_batch, label: str = "E") -> dict:
                ("K2 flash_bwd_dq", ("flash_bwd_dq",)),
                ("K3 flash_bwd_dkv", ("flash_bwd_dkv",)),
                ("K4 layernorm_fwd", ("layernorm_fwd",)),
-               ("K5 layernorm_bwd", ("layernorm_bwd",)))
+               ("K5 layernorm_bwd", ("layernorm_bwd",))) + tuple(extra_classes)
     buckets = {name: 0.0 for name, _ in classes}
     buckets.update({"gemm": 0.0, "memcpy": 0.0, "elementwise/other": 0.0})
     by_name: dict = {}
@@ -1366,7 +1392,7 @@ def phase_f() -> None:
 
 def card_vs_cpu_step(label: str, overrides: list, config: str | None = None,
                      batch: dict | None = None, moved_close: float = 0.9,
-                     planted: str | None = None, n_blocks: int = 2) -> None:
+                     planted: str | None = None, n_blocks: int | None = 2):
     """The phase-F pattern under ``config`` (the ViT-L/16 recipe when None)
     and ``overrides``: an ``n_blocks``-block model at the config's width (4096 prototypes, B=4, LayerScale 1) takes
     one step on the card and one on the CPU from the same weights, batch
@@ -1377,7 +1403,7 @@ def card_vs_cpu_step(label: str, overrides: list, config: str | None = None,
     (``planted_backward``) runs the card's step once more under that
     wrong backward and prints its share, which is not held. A distillation
     teacher is drawn on each run's device: the card's is copied into the
-    CPU's."""
+    CPU's. Returns the card's set-up after its step."""
     import torch
 
     from dinov3_tpu_torch.configs import load_config
@@ -1422,6 +1448,8 @@ def card_vs_cpu_step(label: str, overrides: list, config: str | None = None,
               + ", ".join(f"{k} {v:.4f}" for k, v in m.items() if not k.startswith("grad")))
         after = {n: p.detach().cpu() for n, p in setup.meta.student.named_parameters()}
         results[dev] = (m, before, after)
+        if dev == "cuda":
+            card = setup
     (mc, before, after_c), (mp, before_p, after_p) = results["cuda"], results["cpu"]
     check(all(torch.equal(before[n], before_p[n]) for n in before),
           "card and CPU started from other weights")
@@ -1465,6 +1493,7 @@ def card_vs_cpu_step(label: str, overrides: list, config: str | None = None,
         print(f"[{label}] the card's step under the planted {planted} backward: "
               f"{moved_share(results['planted'][2], False):.4f} of the moved entries "
               f"within a tenth of their step (not held)")
+    return card
 
 
 # ---------------------------------------------------------------- phase G
@@ -1512,6 +1541,7 @@ def run_cli(name: str, args: list, overrides=(), timeout: int = 420,
     last line is its result. Raises on a non-zero exit."""
     cmd = [sys.executable, "-m", "dinov3_tpu_torch.train.train",
            "--config-file", config, *args, *base, *overrides]
+    spawned = time.time()  # the start-up split's origin (``startup_split``)
     t0 = time.perf_counter()
     proc = subprocess.run(cmd, cwd=REPO, capture_output=True, text=True,
                           timeout=timeout)
@@ -1522,7 +1552,7 @@ def run_cli(name: str, args: list, overrides=(), timeout: int = 420,
         tail = (proc.stdout + proc.stderr).splitlines()[-40:]
         raise SmokeFailure(f"[{label}] {name}: exit {proc.returncode}\n" + "\n".join(tail))
     result = json.loads(proc.stdout.strip().splitlines()[-1])
-    result["wall_s"] = wall
+    result["wall_s"], result["spawned"] = wall, spawned
     print(f"[{label}] {name}: {wall:.1f} s wall; start {result.get('start_iteration')}, "
           f"iterations {result.get('iterations')}, launches {result['launches']}"
           + (f"; --benchmark {result['ms_per_step']:.2f} ms a step, "
@@ -1963,13 +1993,66 @@ I5_FEATURE_BATCHES = 3
 
 
 def forward_flops(model, n_tokens: int) -> float:
-    """Operations of one image through the ViT forward: 24 D^2 a token a
-    block (qkv, proj and the 4x MLP, two operations a MAC), attention
-    4 N^2 d a head a block, the patch embedding."""
-    D, L, H = model.embed_dim, model.n_blocks, model.num_heads
-    p = model.patch_size
-    blocks = L * (24 * n_tokens * D * D + 4 * n_tokens ** 2 * (D // H) * H)
-    return blocks + 2 * (n_tokens - model.n_prefix) * p * p * model.in_chans * D
+    """Operations of one image through a ViT forward, counted from its
+    modules (two a multiply-add): every Linear of the blocks over each
+    token (qkv, proj and the MLP or SwiGLU), attention's 4 N^2 d a head a
+    block, the patch embedding."""
+    from torch import nn
+
+    D, p = model.embed_dim, model.patch_size
+    linear = sum(m.weight.numel() for m in model.blocks.modules() if isinstance(m, nn.Linear))
+    return (2 * linear * n_tokens + model.n_blocks * 4 * n_tokens ** 2 * D
+            + 2 * (n_tokens - model.n_prefix) * p * p * model.in_chans * D)
+
+
+def extract_timed(label: str, model, flops: float, batches: list, want: dict) -> dict:
+    """``extract_features`` over host batches of EVAL_B images at EVAL_PX
+    (in memory before the clock starts: loading is set-up; pinned copies,
+    one read-back a batch, synchronized), the first a warm-up (library
+    handles, allocator) that runs again at the end and must give its
+    features bit for bit: img/s, the share of the bf16 tensor-core cap
+    from the forward's counted operations, peak memory, the launches
+    pinned a batch (``want``), finite float32 features and a label an
+    image."""
+    import torch
+
+    from dinov3_tpu_torch.evals import extract_features
+
+    warm, _ = extract_features(model, iter(batches[:1]))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    t0 = time.perf_counter()
+    feats, labels = extract_features(model, iter(batches[1:]))
+    wall = time.perf_counter() - t0
+    launches = read_counts()
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    n_batches = len(batches) - 1
+    n_img = n_batches * EVAL_B
+    img_s = n_img / wall
+    cap = BF16_TC_FLOP_S / flops
+    print(f"[{label}] extract_features: {n_img} images in {wall * 1e3:.1f} ms "
+          f"({wall / n_batches * 1e3:.1f} ms a batch of {EVAL_B}): {img_s:.1f} img/s; "
+          f"{flops / 1e9:.1f} GFLOP an image ({flops * EVAL_B / 1e15:.4f} PFLOP a batch) "
+          f"caps the card at {cap:.0f} img/s, share {img_s / cap:.4f}; peak {peak:.2f} GiB; "
+          f"launches {launches}")
+    check(feats.shape == (n_img, model.embed_dim) and feats.dtype == np.float32
+          and np.isfinite(feats).all() and labels.shape == (n_img,),
+          f"[{label}] bad features {feats.shape}")
+    pinned = {k: v * n_batches for k, v in want.items()}
+    check(launches == pinned, f"[{label}] launches {launches} != {pinned}")
+    again, _ = extract_features(model, iter(batches[:1]))
+    check(np.array_equal(warm, again), f"[{label}] two extractions of one batch differ")
+    return {"launches": launches, "batches": n_batches, "img_s": img_s,
+            "share": img_s / cap, "peak_gib": peak, "gflop_per_img": flops / 1e9,
+            "ms_per_batch": wall / n_batches * 1e3}
+
+
+def seeded_batches(n: int) -> list:
+    """n host batches of EVAL_B seeded normal images at EVAL_PX."""
+    rng = np.random.default_rng(23)
+    return [{"image": rng.standard_normal((EVAL_B, EVAL_PX, EVAL_PX, 3), np.float32),
+             "label": np.zeros(EVAL_B, np.int64)} for _ in range(n)]
 
 
 def device_busy(fn, label: str, top: int = 8) -> dict:
@@ -2049,7 +2132,7 @@ def phase_i1(cfg) -> dict:
     import torch
 
     from dinov3_tpu_torch.data.transforms import make_classification_eval_transform
-    from dinov3_tpu_torch.evals import extract_features, make_feature_fn
+    from dinov3_tpu_torch.evals import make_feature_fn
     from dinov3_tpu_torch.models import build_model_for_eval
 
     t0 = time.perf_counter()
@@ -2064,34 +2147,12 @@ def phase_i1(cfg) -> dict:
     batches = host_batches("Synthetic:split=TRAIN:size=100000:image_size=256",
                            make_classification_eval_transform(256, EVAL_PX), n_batches + 1)
     host_s = time.perf_counter() - t0
-    n_img = n_batches * EVAL_B
     print(f"[I1] host pipeline (8 threads: synthetic 256 px images, resize, centre crop "
           f"224, normalize, collate): {(n_batches + 1) * EVAL_B} images in {host_s:.2f} s, "
           f"{(n_batches + 1) * EVAL_B / host_s:.1f} img/s")
     check(batches[0]["image"].shape == (EVAL_B, EVAL_PX, EVAL_PX, 3), "[I1] batch shape")
-    warm, _ = extract_features(model, iter(batches[:1]))  # library handles, allocator
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
-    reset_counts()
-    t0 = time.perf_counter()
-    feats, labels = extract_features(model, iter(batches[1:]))
-    wall = time.perf_counter() - t0
-    launches = read_counts()
-    peak = torch.cuda.max_memory_allocated() / 2 ** 30
-    flops = forward_flops(model, 1 + (EVAL_PX // 16) ** 2)
-    img_s = n_img / wall
-    cap = BF16_TC_FLOP_S / flops
-    print(f"[I1] extract_features: {n_img} images in {wall * 1e3:.1f} ms (host batches in "
-          f"memory, pinned copies, one read-back a batch, synchronized): {img_s:.1f} img/s; "
-          f"{flops / 1e9:.1f} GFLOP an image caps the card at {cap:.0f} img/s, share "
-          f"{img_s / cap:.4f}; peak memory {peak:.2f} GiB; launches {launches}")
-    check(feats.shape == (n_img, 1024) and feats.dtype == np.float32
-          and np.isfinite(feats).all() and labels.shape == (n_img,), "[I1] bad features")
-    want = {k: v * n_batches for k, v in EVAL_LAUNCHES.items()}
-    check(launches == want, f"[I1] launches {launches} != {want}")
-    # the same images as one more batch: the first batch's features again
-    again, _ = extract_features(model, iter(batches[:1]))
-    check(np.array_equal(warm, again), "[I1] two extractions of one batch differ")
+    out = extract_timed("I1", model, forward_flops(model, 1 + (EVAL_PX // 16) ** 2), batches,
+                        EVAL_LAUNCHES)
     feat = make_feature_fn(model)
     x = torch.from_numpy(batches[1]["image"]).to("cuda")
     device_busy(lambda: feat(x), "I1 one batch")
@@ -2111,8 +2172,7 @@ def phase_i1(cfg) -> dict:
     k4 = check_layernorm(xr, s.to("cuda"), b.to("cuda"),
                          f"eval rows [{EVAL_B * N}, 1024] bf16, fp32 params", time_it=True)
     del xr, model
-    return {"launches": launches, "batches": n_batches, "img_s": img_s, "peak_gib": peak,
-            "K1": k1, "K4": k4}
+    return {**out, "K1": k1, "K4": k4}
 
 
 def phase_i2(cfg) -> None:
@@ -3869,9 +3929,9 @@ def teacher_pack_launches(teacher: int) -> dict:
     return {"K1": teacher, "K2": 0, "K3": 0, "K4": 2 * teacher + 2, "K5": 0}
 
 
-def n_teacher_yaml() -> str:
-    """The 1-block, small-headed ViT-7B teacher recipe of N2 and N3, written
-    under N_DIR."""
+def n_teacher_yaml(directory: str = N_DIR) -> str:
+    """The 1-block, small-headed ViT-7B teacher recipe of N2 and N3 (and O1,
+    O3), written under ``directory``."""
     import yaml
 
     with open(os.path.join(REPO, "configs", "train", "vit7b16_pretrain.yaml")) as f:
@@ -3879,7 +3939,7 @@ def n_teacher_yaml() -> str:
     recipe["student"].update(N_TEACHER_OVERRIDES)
     for head in ("dino", "ibot"):
         recipe[head].update(head_n_prototypes=4096, head_hidden_dim=2048)
-    path = os.path.join(N_DIR, "teacher_7b_1block.yaml")
+    path = os.path.join(directory, "teacher_7b_1block.yaml")
     with open(path, "w") as f:
         yaml.safe_dump(recipe, f)
     return path
@@ -4348,6 +4408,377 @@ def phase_n3(teacher_yaml: str, children: list) -> dict:
     return {"uninterrupted": a, "resumed": r, "self_check": sc}
 
 
+# ---------------------------------------------------------------- phase O
+
+O_DIR = os.path.join(REPO, "build", "phase_o")
+# ConvNeXt-L/16 distilled from the ViT-7B/16: the distilled recipe with the
+# student swapped on the command line (its widths, crops, heads and teacher
+# as written; no file under configs/ names a ConvNeXt)
+CONVNEXT_OVERRIDES = DISTILL_OVERRIDES + ["student.arch=convnext_large"]
+CONVNEXT_DEPTHS, CONVNEXT_DIMS = (3, 3, 27, 3), (192, 384, 768, 1536)
+# the LayerNorms of one ConvNeXt forward: the stem's, the three
+# downsamples', one a block and the final norm
+CONVNEXT_NORMS = 1 + 3 + sum(CONVNEXT_DEPTHS) + 1
+# O1's cut: one block a stage at ConvNeXt-L widths
+O1_DEPTHS = "+student.depths=[1,1,1,1]"
+O1_CHILD = "--phase-o1"
+O1_ARMS = ("ssl", "distill")
+VIT7B_CONFIG = os.path.join("configs", "train", "vit7b16_pretrain.yaml")
+# the 7B at 224 px: 1 CLS + 4 storage tokens + 14 x 14 patches
+VIT7B_EVAL_N = 5 + (EVAL_PX // 16) ** 2
+
+
+def convnext_launches(norms: int, teacher: int = 0, ema: bool = False) -> dict:
+    """K1-K5 launches of one step with a ConvNeXt student of ``norms``
+    LayerNorms a forward, run over the global and the local crops in two
+    passes: K4 once a norm a pass and K5 once a K4 launch; a ViT teacher of
+    ``teacher`` blocks in the step adds K1 once a block and K4 twice a block
+    plus its prefix and patch norms; an EMA ConvNeXt teacher (``ema``) K4
+    once a norm over the global crops. K2 and K3 never: no student
+    attention, a teacher without gradients."""
+    k4 = 2 * norms + (2 * teacher + 2 if teacher else 0) + (norms if ema else 0)
+    return {"K1": teacher, "K2": 0, "K3": 0, "K4": k4, "K5": 2 * norms}
+
+
+def convnext_forward_flops(model, px: int) -> float:
+    """Operations of one px x px image through a ConvNeXt forward, counted
+    from its modules (two a multiply-add): the stem and downsample convs,
+    each block's 7 x 7 depthwise conv and its two pointwise Denses, at each
+    stage's SAME-padded size."""
+    from dinov3_tpu_torch.models.convnext import same_pads
+
+    flops, n, c_in = 0.0, px, model.in_chans
+    for i, (depth, c) in enumerate(zip(model.depths, model.dims)):
+        k = 4 if i == 0 else 2
+        n = (n + sum(same_pads(n, k, k))) // k
+        flops += 2 * n * n * k * k * c_in * c
+        flops += depth * 2 * n * n * c * (49 + 8 * c)
+        c_in = c
+    return flops
+
+
+CONV_CLASSES = (("conv (depthwise, stem, downsample; fwd/bwd)",
+                 ("conv", "fprop", "dgrad", "wgrad", "depthwise", "implicit")),
+                ("copy (layout / dtype)", ("copy_kernel", "direct_copy", "catarray")))
+
+
+def phase_o() -> dict:
+    """The ConvNeXt family and the ViT-7B eval extraction on one card
+    (module docstring)."""
+    import torch
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    shutil.rmtree(O_DIR, ignore_errors=True)
+    os.makedirs(O_DIR)
+    children = []
+    try:
+        out = {}
+        t0 = time.perf_counter()
+        out["O0"] = phase_o0()
+        print(f"[O] O0 {time.perf_counter() - t0:.1f} s")
+        gc.collect()
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        out["O2"] = phase_o2()
+        print(f"[O] O2 {time.perf_counter() - t0:.1f} s")
+        gc.collect()
+        torch.cuda.empty_cache()
+        # O1's CPU halves take the host's cores and O3's child waits mostly
+        # on the card and the disk: O1's two arms run in processes of their
+        # own, beside O3
+        t0 = time.perf_counter()
+        yaml_path = n_teacher_yaml(O_DIR)
+        for arm in O1_ARMS:
+            children.append(subprocess.Popen(
+                [sys.executable, os.path.abspath(__file__), O1_CHILD, arm, yaml_path],
+                cwd=REPO, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
+        out["O3"] = phase_o3(yaml_path)
+        print(f"[O] O3 {time.perf_counter() - t0:.1f} s")
+        for arm, child in zip(O1_ARMS, children):
+            o1_out, _ = child.communicate(timeout=600)
+            print(o1_out.rstrip())
+            check(child.returncode == 0, f"[O] O1 {arm} exit {child.returncode}")
+        print(f"[O] O1 and O3 {time.perf_counter() - t0:.1f} s")
+        return out
+    finally:
+        for child in children:
+            if child.poll() is None:
+                child.kill()
+                child.wait()
+        shutil.rmtree(O_DIR, ignore_errors=True)
+
+
+def phase_o_kernels() -> dict:
+    """K4 and K5 against their plain versions at the ConvNeXt-L student's
+    new widths: each stage's rows of the recipe's 2B = 32 global crops at
+    256 px ([32 x 64 x 64, 192] down to [32 x 8 x 8, 1536], the stem's and
+    the blocks' norms), and K4 on the final norm's [32 x 257, 1536]."""
+    import torch
+
+    dev = torch.device("cuda")
+    g = torch.Generator().manual_seed(19)
+    out = {"K4": {}, "K5": {}}
+    n_img, side = 2 * DISTILL_B, 256 // 4
+    shapes = [(f"stage {i}", n_img * (side >> i) ** 2, c) for i, c in enumerate(CONVNEXT_DIMS)]
+    for name, rows, d in shapes + [("final norm", n_img * (1 + 16 * 16), CONVNEXT_DIMS[-1])]:
+        x = (torch.randn(rows, d, generator=g) * 3 + 1).to(dev, torch.bfloat16)
+        s_ = (torch.randn(d, generator=g) * 0.5 + 1).to(dev)
+        b_ = torch.randn(d, generator=g).to(dev)
+        label = f"ConvNeXt-L {name} [{rows}, {d}] bf16, fp32 params"
+        out["K4"][name] = check_layernorm(x, s_, b_, label, time_it=True)
+        if name != "final norm":
+            out["K5"][name] = check_layernorm_bwd(x, s_, label, time_it=True)
+        del x
+    return out
+
+
+def phase_o0() -> dict:
+    """The distilled recipe with a ConvNeXt-L student (``CONVNEXT_OVERRIDES``:
+    B=16, 2 x 256 px + 8 x 112 px crops, 262,144 / 98,304 prototypes) and
+    its ViT-7B/16 teacher at 40 blocks drawn on the card, in the step:
+    ``build_train_setup`` + ``step_fn``, a warm-up step and 5 timed, every
+    loss finite, the launches pinned a step, one step profiled by kernel
+    class with the convolutions and the copies as classes of their own."""
+    import torch
+
+    from dinov3_tpu_torch.configs import load_config
+    from dinov3_tpu_torch.data import make_synthetic_batch
+    from dinov3_tpu_torch.models import ConvNeXt
+    from dinov3_tpu_torch.train import build_train_setup, put_batch
+
+    kernels = phase_o_kernels()
+    gc.collect()
+    torch.cuda.empty_cache()
+    cfg = load_config(os.path.join(REPO, DISTILL_CONFIG), CONVNEXT_OVERRIDES, n_devices=1)
+    batch = make_synthetic_batch(cfg, DISTILL_B, seed=0)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    setup = build_train_setup(cfg, batch, device="cuda", seed=0)
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    meta = setup.meta
+    tb, sb = meta.teacher["backbone"], meta.student["backbone"]
+    check(meta.distillation and meta.teacher_source == "in_step"
+          and isinstance(sb, ConvNeXt)
+          and (sb.depths, sb.dims) == (CONVNEXT_DEPTHS, CONVNEXT_DIMS)
+          and not (meta.crop_packing or meta.rng_plan)
+          and (tb.n_blocks, tb.embed_dim, tb.head_dim) == (DISTILL_TEACHER_DEPTH, GRAM_D, 128)
+          and next(tb.parameters()).device.type == "cuda",
+          "[O] the set-up did not resolve a ConvNeXt-L student and a 40-block ViT-7B teacher")
+    n_params = {k: sum(p.numel() for p in getattr(meta, k).parameters())
+                for k in ("student", "teacher")}
+    held = torch.cuda.memory_allocated() / 2 ** 30
+    print(f"[O] O0 set-up {setup_s:.1f} s (student modules and draws on the host "
+          f"{setup.draws_s:.1f} s of it, the teacher drawn on the card): parameters "
+          f"{n_params}, {held:.2f} GiB held")
+    dbatch = put_batch(batch, "cuda")  # data loading is set-up
+    state = setup.state
+    t0 = time.perf_counter()
+    state, m = setup.step_fn(state, dbatch, setup.scalars(0))
+    torch.cuda.synchronize()
+    print(f"[O] O0 warm-up step: {(time.perf_counter() - t0) * 1e3:.1f} ms")
+    reset_counts()
+    times, steps = [], 5
+    for i in range(1, 1 + steps):
+        t0 = time.perf_counter()
+        state, m = setup.step_fn(state, dbatch, setup.scalars(i))
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+        check(all(np.isfinite(v) for v in m.values()), f"[O] step {i}: {m}")
+    launches = read_counts()
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    per_step = {k: v / steps for k, v in launches.items()}
+    want = convnext_launches(CONVNEXT_NORMS, DISTILL_TEACHER_DEPTH)
+    check(per_step == want, f"[O] launches a step {per_step} != {want}")
+    profile = profile_step(setup, state, batch, label="O0", extra_classes=CONV_CLASSES)
+    median = float(np.median(times))
+    print(f"[O] O0 ConvNeXt-L/16 <- ViT-7B/16 ({DISTILL_TEACHER_DEPTH} blocks) in the step, "
+          f"B={DISTILL_B}: {steps} steps median {median:.1f} ms ("
+          + ", ".join(f"{t:.1f}" for t in times)
+          + f"), {DISTILL_B / median * 1e3:.2f} img/s, peak {peak:.2f} GiB; launches a step "
+          f"{per_step}; losses at step {steps}: "
+          + ", ".join(f"{k} {v:.4f}" for k, v in m.items() if not k.startswith("grad")))
+    del setup, state, dbatch, meta, tb, sb
+    return {"kernels": kernels, "launches": launches, "per_step": per_step,
+            "median_ms": median, "step_ms": times, "peak_gib": peak, "setup_s": setup_s,
+            "profile": profile, "held_gib": held,
+            "losses": {k: v for k, v in m.items() if not k.startswith("grad")}}
+
+
+def phase_o2() -> dict:
+    """Eval extraction at B=256, 224 px, drawn on the card by
+    ``build_model_for_eval`` (built on the meta device): ConvNeXt-L, then
+    the ViT-7B/16 of ``vit7b16_pretrain.yaml`` at its 40 blocks; set-up s,
+    img/s, the share of the 989 TFLOP/s cap and the launches a forward; K1
+    and K4 at the 7B's eval shapes against their plain versions."""
+    import torch
+
+    from dinov3_tpu_torch.configs import load_config
+    from dinov3_tpu_torch.models import ConvNeXt, build_model_for_eval
+
+    out = {}
+    cfg = load_config(os.path.join(REPO, DISTILL_CONFIG), CONVNEXT_OVERRIDES, n_devices=1)
+    t0 = time.perf_counter()
+    model = build_model_for_eval(cfg, device="cuda", seed=0)
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    check(isinstance(model, ConvNeXt) and model.dims == CONVNEXT_DIMS
+          and next(model.parameters()).device.type == "cuda", "[O2] not ConvNeXt-L on the card")
+    print(f"[O2] ConvNeXt-L eval model built on the meta device, drawn on the card: "
+          f"{setup_s:.2f} s")
+    out["convnext"] = extract_timed(
+        "O2 ConvNeXt-L", model, convnext_forward_flops(model, EVAL_PX), seeded_batches(5),
+        {"K1": 0, "K2": 0, "K3": 0, "K4": CONVNEXT_NORMS, "K5": 0})
+    out["convnext"]["setup_s"] = setup_s
+    del model
+    gc.collect()
+    torch.cuda.empty_cache()
+    vcfg = load_config(os.path.join(REPO, VIT7B_CONFIG), ["parallel.fsdp=1"], n_devices=1)
+    t0 = time.perf_counter()
+    model = build_model_for_eval(vcfg, device="cuda", seed=0)
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    check((model.n_blocks, model.embed_dim, model.head_dim, model.n_prefix)
+          == (DISTILL_TEACHER_DEPTH, GRAM_D, 128, 5), "[O2] not the 40-block ViT-7B/16")
+    n_params = sum(p.numel() for p in model.parameters())
+    print(f"[O2] ViT-7B/16 eval model ({n_params} parameters, "
+          f"{next(model.parameters()).dtype}) built on the meta device, drawn on the card: "
+          f"{setup_s:.2f} s, {torch.cuda.memory_allocated() / 2 ** 30:.2f} GiB held")
+    flops = forward_flops(model, VIT7B_EVAL_N)
+    out["vit7b"] = extract_timed(
+        "O2 ViT-7B/16", model, flops, seeded_batches(3),
+        {"K1": DISTILL_TEACHER_DEPTH, "K2": 0, "K3": 0, "K4": 2 * DISTILL_TEACHER_DEPTH + 2,
+         "K5": 0})
+    out["vit7b"]["setup_s"] = setup_s
+    del model
+    gc.collect()
+    torch.cuda.empty_cache()
+    g = torch.Generator().manual_seed(29)
+    N, H, D = VIT7B_EVAL_N, GRAM_H, 128
+    qkv = torch.randn(EVAL_B, N, 3 * H * D, generator=g).to("cuda", torch.bfloat16)
+    q, k, v = (qkv[..., i * H * D:(i + 1) * H * D].reshape(EVAL_B, N, H, D) for i in range(3))
+    out["K1"] = check_flash(q.contiguous(), k.contiguous(), v, None,
+                            f"ViT-7B eval [{EVAL_B}x{H}, {N}, {D}] bf16 no seg", time_it=True)
+    del qkv, q, k, v
+    xr = (torch.randn(EVAL_B * N, GRAM_D, generator=g) * 3 + 1).to("cuda", torch.bfloat16)
+    s_, b_ = torch.randn(GRAM_D, generator=g) * 0.5 + 1, torch.randn(GRAM_D, generator=g)
+    out["K4"] = check_layernorm(xr, s_.to("cuda"), b_.to("cuda"),
+                                f"ViT-7B eval rows [{EVAL_B * N}, {GRAM_D}] bf16, fp32 params",
+                                time_it=True)
+    del xr
+    return out
+
+
+def phase_o1(arm: str, teacher_yaml: str) -> None:
+    """A step at ConvNeXt-L widths with one block a stage (4096 prototypes,
+    B=2, LayerScale 1) on the card and on the CPU, compared as phase F
+    compares: ``arm`` "distill" distils from the 1-block ViT-7B-width
+    teacher of ``teacher_yaml``; "ssl" steps with its EMA ConvNeXt
+    teacher and drop path at rate 0.2, then its card state after the step is saved and read back by
+    ``build_model_for_eval(ckpt_dir=)`` on the card: the EMA teacher's
+    backbone bit for bit, its features within 2^-5. Each arm runs in a
+    process of its own (``O1_CHILD``), beside O3."""
+    import torch
+
+    from dinov3_tpu_torch.checkpoint import Checkpointer
+    from dinov3_tpu_torch.data import make_synthetic_batch
+    from dinov3_tpu_torch.models import build_model_for_eval
+
+    base = CONVNEXT_OVERRIDES + [O1_DEPTHS, "train.batch_size_per_device=2"]
+    if arm == "distill":
+        card_vs_cpu_step("O1 ConvNeXt <- ViT-7B width", base + [
+            f"distillation.full_cfg_path={teacher_yaml}"], config=DISTILL_CONFIG,
+            n_blocks=None)
+        return
+    # drop path on (the distilled recipe has none): the per-sample masks
+    # of DropPath, from the plan drawn once on the host for both devices
+    setup = card_vs_cpu_step("O1 ConvNeXt SSL", base + ["distillation.enabled=false",
+                                                        "student.drop_path_rate=0.2"],
+                             config=DISTILL_CONFIG, n_blocks=None)
+    cfg = setup.cfg
+    batch = make_synthetic_batch(cfg, 2, seed=4)
+    ckpt = os.path.join(O_DIR, "o1_ckpt")
+    Checkpointer(ckpt).save(1, setup.state)
+    model = build_model_for_eval(cfg, ckpt, device="cuda")
+    teacher = setup.meta.teacher["backbone"]
+    want = teacher.state_dict()
+    check(model.state_dict().keys() == want.keys()
+          and all(torch.equal(v, want[k]) for k, v in model.state_dict().items()),
+          "[O1] the eval model is not the checkpoint's EMA teacher backbone")
+    x = torch.from_numpy(batch["global_crops"]).to("cuda")
+    with torch.no_grad():
+        got, ref = model(x)["x_norm_clstoken"].float(), teacher(x)["x_norm_clstoken"].float()
+    err = (got - ref).abs().max().item() / max(ref.abs().max().item(), 1e-6)
+    check(err <= 2.0 ** -5, f"[O1] eval features {err:.3e} of their scale from the teacher's")
+    print(f"[O1] build_model_for_eval(ckpt_dir=) on a ConvNeXt-L (1 block a stage) SSL "
+          f"checkpoint: the EMA teacher backbone bit for bit, features within {err:.3e} "
+          f"of their scale (tol {2.0 ** -5:.3e})")
+
+
+def startup_split(result: dict) -> dict:
+    """A trainer child's start-up by what it does before its first step,
+    in seconds: the interpreter and the imports, the config, the CUDA
+    context (the kernels' cached libraries loaded), the first batch, the
+    meta-arch's module builds and draws, the rest of the set-up, the first
+    step (from the set-up's end, by CUDA events); from the child's
+    ``startup`` marks and its parent's spawn time."""
+    s = result["startup"]
+    split = {"imports": s["imported"] - result["spawned"],
+             "config": s["config"] - s["imported"],
+             "cuda_init": s["cuda_init"] - s["config"],
+             "first_batch": s["first_batch"] - s["cuda_init"],
+             "draws": s["draws_s"], "setup_rest": s["setup_s"] - s["draws_s"],
+             "first_step": s["first_step_s"]}
+    split["total"] = sum(split.values())
+    return split
+
+
+def phase_o3(teacher_yaml: str) -> dict:
+    """The trainer CLI on O0's recipe with the 1-block ViT-7B-width teacher
+    and small heads of N3 (its seeded draw): ConvNeXt-L at full depth, 4
+    iterations, a save at 4, ``--dump-weights``; the launches pinned; the
+    child's start-up split (``startup_split``); ``build_model_for_eval``
+    in this process on the run's checkpoint (its teacher backbone), against
+    a model holding the dump's teacher backbone: the same weights and the
+    same features, bit for bit."""
+    import torch
+
+    from dinov3_tpu_torch.configs import load_config
+    from dinov3_tpu_torch.models import build_model_for_eval
+
+    run_dir, dump = os.path.join(O_DIR, "run"), os.path.join(O_DIR, "dump.npz")
+    base = CONVNEXT_OVERRIDES + N_SMALL_HEADS + [
+        "checkpointing.period=4", f"distillation.full_cfg_path={teacher_yaml}"]
+    r = run_cli("convnext distill", ["--output-dir", run_dir, "--max-iterations", "4",
+                                     "--dump-weights", dump],
+                base=base, label="O", log_dir=O_DIR, config=DISTILL_CONFIG, timeout=400)
+    want = {k: 4 * v for k, v in convnext_launches(CONVNEXT_NORMS, 1).items()}
+    check(r["distillation"] == "in_step" and [s["step"] for s in r["saves"]] == [4]
+          and r["launches"] == want and np.isfinite(r["final_loss"]),
+          f"[O] O3 run {r} (launches want {want})")
+    split = startup_split(r)
+    print("[O] O3 the child's start-up: " + ", ".join(f"{k} {v:.2f} s" for k, v in split.items()))
+    tcfg = load_config(teacher_yaml, DISTILL_OVERRIDES, n_devices=1)
+    model = build_model_for_eval(tcfg, os.path.join(run_dir, "ckpt"), device="cuda")
+    dumped = np.load(dump)
+    ref = build_model_for_eval(tcfg, device="cuda")
+    ref.load_state_dict({k: torch.from_numpy(dumped["teacher/backbone/" + k.replace(".", "/")])
+                         for k in ref.state_dict()}, strict=True)
+    check(all(torch.equal(v, ref.state_dict()[k]) for k, v in model.state_dict().items()),
+          "[O] O3 the eval model's weights are not the dump's teacher backbone")
+    x = torch.from_numpy(np.random.default_rng(31).standard_normal(
+        (8, 256, 256, 3), np.float32)).to("cuda")
+    with torch.no_grad():
+        a, b = model(x), ref(x)
+    check(all(torch.equal(a[k], b[k]) for k in ("x_norm_clstoken", "x_norm_patchtokens")),
+          "[O] O3 the eval model's features differ from the dump's")
+    print(f"[O] O3 CLI (ConvNeXt-L full depth <- 1-block ViT-7B-width teacher): 4 iterations, "
+          f"launches {r['launches']}; build_model_for_eval(ckpt_dir=) holds the dump's "
+          "teacher backbone, the same features bit for bit")
+    return {"run": r, "startup": split}
+
+
 def main() -> int:
     import torch
 
@@ -4370,6 +4801,11 @@ def main() -> int:
         t0 = time.perf_counter()
         phase_n2(sys.argv[2])
         print(f"[N] N2 {time.perf_counter() - t0:.1f} s")
+        return 0
+    if sys.argv[1:2] == [O1_CHILD]:  # an arm of phase O's O1, beside O3
+        t0 = time.perf_counter()
+        phase_o1(sys.argv[2], sys.argv[3])
+        print(f"[O] O1 {sys.argv[2]} {time.perf_counter() - t0:.1f} s")
         return 0
     cfg = load_config(os.path.join(REPO, "configs", "train", "vitl16_im1k.yaml"))
     t_start = time.perf_counter()
@@ -4399,6 +4835,7 @@ def main() -> int:
     lp = timed("L", phase_l)
     gram = timed("M", phase_m)
     distill = timed("N", phase_n)
+    cnx = timed("O", phase_o)
     print(f"[smoke] all phases passed in {time.perf_counter() - t_start:.1f} s: "
           + ", ".join(f"{k} {v:.1f}" for k, v in seconds.items()))
     for key in ("K1", "K4"):
@@ -4408,6 +4845,10 @@ def main() -> int:
         rows[key]["vitg_shapes"] = vitg["rows"][key]
         rows[key]["vit7b_shapes"] = gram["M0"][key]
         rows[key]["distill_shapes"] = distill["N0"]["kernels"][key]
+        if key in cnx["O0"]["kernels"]:
+            rows[key]["convnext_shapes"] = cnx["O0"]["kernels"][key]
+    for key in ("K1", "K4"):
+        rows[key]["vit7b_eval_shapes"] = cnx["O2"][key]
 
     table = []
     for key, name, source, replaces in (
@@ -4440,7 +4881,10 @@ def main() -> int:
             # the distillation step's 5 timed steps with its 40-block
             # teacher (N0), the teacher engine's first packs and the 3
             # serve-arm steps (N1), and the distillation CLI's
-            # uninterrupted 4 iterations (N3, in its own process)
+            # uninterrupted 4 iterations (N3, in its own process), the
+            # ConvNeXt-L distillation step's 5 timed steps (O0), the eval
+            # batches of ConvNeXt-L and the 40-block ViT-7B (O2) and the
+            # ConvNeXt CLI's 4 iterations (O3, in its own process)
             "launches": (serve_launches[key] + train_launches[key] + cli["launches"][key]
                          + recipe["launches"][key] + ev["launches"][key]
                          + serving["launches"][key] + vitg["cli"]["launches"][key]
@@ -4450,7 +4894,12 @@ def main() -> int:
                          + distill["N0"]["launches"][key]
                          + distill["N1"]["pack_launches"][key]
                          + distill["N1"]["step_launches"][key]
-                         + distill["N3"]["uninterrupted"]["launches"][key]),
+                         + distill["N3"]["uninterrupted"]["launches"][key]
+                         + cnx["O0"]["launches"][key]
+                         + cnx["O2"]["convnext"]["launches"][key]
+                         + cnx["O2"]["vit7b"]["launches"][key]
+                         + cnx["O3"]["run"]["launches"][key]),
+            "launches_per_convnext_distill_step": cnx["O0"]["per_step"][key],
             "launches_per_distill_step": distill["N0"]["per_step"][key],
             "launches_per_distill_serve_step": distill["N1"]["per_step"][key],
             "launches_per_teacher_pack": distill["N1"]["per_pack"][key],
@@ -4469,7 +4918,8 @@ def main() -> int:
             "bound_by": r["bound_by"], "library_ms": r["library_ms"],
             **{k: r[k] for k in ("cold_ms", "visited_share", "walked_share", "train_shapes",
                                  "eval_shapes", "oracle_shapes", "vitg_shapes",
-                                 "vit7b_shapes", "distill_shapes") if k in r},
+                                 "vit7b_shapes", "distill_shapes", "convnext_shapes",
+                                 "vit7b_eval_shapes") if k in r},
         })
     print(f"[smoke] train step {step['ms']:.1f} ms, "
           f"{TRAIN_B / step['ms'] * 1e3:.2f} img/s, peak {step['peak_gib']:.2f} GiB; "
@@ -4488,7 +4938,13 @@ def main() -> int:
           f"ViT-7B/16 (B={DISTILL_B}) {distill['N0']['median_ms']:.1f} ms a step, "
           f"{DISTILL_B / distill['N0']['median_ms'] * 1e3:.2f} img/s, peak "
           f"{distill['N0']['peak_gib']:.2f} GiB, set-up {distill['N0']['setup_s']:.1f} s; "
-          f"the teacher engine {distill['N1']['miss_img_s']:.1f} img/s at 256 px")
+          f"the teacher engine {distill['N1']['miss_img_s']:.1f} img/s at 256 px; "
+          f"ConvNeXt-L/16 distilled from the 40-block ViT-7B/16 (B={DISTILL_B}) "
+          f"{cnx['O0']['median_ms']:.1f} ms a step, "
+          f"{DISTILL_B / cnx['O0']['median_ms'] * 1e3:.2f} img/s, peak "
+          f"{cnx['O0']['peak_gib']:.2f} GiB; eval extraction at B={EVAL_B}, {EVAL_PX} px: "
+          f"ConvNeXt-L {cnx['O2']['convnext']['img_s']:.1f} img/s, ViT-7B/16 "
+          f"{cnx['O2']['vit7b']['img_s']:.1f} img/s")
     print(json.dumps({"kernels": table}))
     print(smi_line())
     print(json.dumps({"ok": True, "device": {

@@ -8,7 +8,8 @@ producer for any iterable (the synthetic stream uses it too).
 
 The dataset strings are the JAX package's (``"Folder:root=/data"``); the
 image folder, the synthetic images, ImageNet, ImageNet-22k and web shards
-are ported, ADE20K and the captions wait (ROADMAP M12). Nothing here
+are ported; ADE20K and the COCO captions, with the tokenizer, wait in
+ROADMAP M12's one-card part. Nothing here
 imports PIL: the datasets are imported when one is made.
 """
 

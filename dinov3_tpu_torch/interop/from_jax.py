@@ -7,7 +7,10 @@ The JAX package's tree (nested dicts of arrays, e.g. from
 Dense kernels [in, out] -> [out, in] (qkv [D, 3D] -> [3D, D]), the patch
 kernel [p, p, C, D] -> [D, C, p, p], and the mask token [D] -> [1, D].
 Both the unscanned (``blocks_N``) and the scanned (``blocks/block`` with
-[L, ...] stacked leaves) trees are taken.
+[L, ...] stacked leaves) trees are taken. A ConvNeXt's tree keeps its
+module names (``convnext_state_dict_from_jax``): conv kernels HWIO ->
+OIHW, ``Dense`` kernels [in, out] -> [out, in], LayerNorm ``scale`` ->
+``weight``.
 
 The training tree ``{"student": {backbone, dino_head, ibot_head},
 "teacher": {...}}`` maps onto ``SSLMetaArch``'s ``student`` and
@@ -124,8 +127,34 @@ def meta_state_dicts_from_jax(params: Mapping) -> dict[str, dict]:
     return out
 
 
+def convnext_state_dict_from_jax(params: Mapping) -> dict[str, torch.Tensor]:
+    """Nested JAX ConvNeXt params -> the port's ``ConvNeXt`` ``state_dict``
+    (the same module names): conv kernels HWIO -> OIHW (the depthwise
+    [7, 7, 1, C] -> [C, 1, 7, 7]), ``Dense`` kernels [in, out] -> [out,
+    in], LayerNorm ``scale`` -> ``weight``; biases and ``gamma`` as they
+    are."""
+    out: dict[str, torch.Tensor] = {}
+    for path, value in _flatten(params).items():
+        *mods, leaf = path
+        name = ".".join(mods)
+        a = np.asarray(value)
+        if leaf == "kernel" and a.ndim == 4:
+            out[f"{name}.weight"] = _to_torch(a.transpose(3, 2, 0, 1))
+        elif leaf == "kernel":
+            out[f"{name}.weight"] = _to_torch(a, transpose=True)
+        elif leaf == "scale":
+            out[f"{name}.weight"] = _to_torch(a)
+        else:
+            out[".".join(path)] = _to_torch(a)
+    return out
+
+
 def state_dict_from_jax(params: Mapping) -> dict[str, torch.Tensor]:
-    """Nested JAX backbone params -> flat Meta-named torch ``state_dict``."""
+    """Nested JAX backbone params -> flat Meta-named torch ``state_dict``;
+    a ConvNeXt's tree (it has a ``stem_conv``) maps by
+    ``convnext_state_dict_from_jax``."""
+    if "stem_conv" in params:
+        return convnext_state_dict_from_jax(params)
     out: dict[str, torch.Tensor] = {}
 
     def put(name, value, transpose=False):

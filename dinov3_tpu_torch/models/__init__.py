@@ -1,5 +1,5 @@
-"""Model factories from config (``dinov3_tpu/models/__init__.py``), ViT
-only: ConvNeXt is not ported yet."""
+"""Model factories from config (``dinov3_tpu/models/__init__.py``): the
+ViTs (``vision_transformer.py``) and the ConvNeXts (``convnext.py``)."""
 
 from __future__ import annotations
 
@@ -8,7 +8,14 @@ import os
 
 import torch
 
+from dinov3_tpu_torch.configs.config import lowp_cfg
 from dinov3_tpu_torch.logging_utils import LOGGER_NAME
+from dinov3_tpu_torch.models.convnext import (
+    CONVNEXT_SIZES,
+    ConvNeXt,
+    convnext_kwargs_from_cfg,
+    get_convnext_arch,
+)
 from dinov3_tpu_torch.models.vision_transformer import (
     ARCHS,
     DinoVisionTransformer,
@@ -19,13 +26,17 @@ from dinov3_tpu_torch.ops.common import Policy, resolve_device
 
 
 def backbone_kwargs_from_cfg(cfg, *, teacher: bool = True) -> dict:
-    """``student`` section -> ``DinoVisionTransformer`` kwargs. The teacher
+    """``student`` section -> the kwargs of ``vit_ctor(cfg)``: those of
+    ``convnext_kwargs_from_cfg`` for a ConvNeXt arch, else the
+    ``DinoVisionTransformer`` kwargs. The teacher
     (and serve) backbone is deterministic: no drop path, no activation
     checkpointing. The student takes ``student.drop_path_rate`` and
     ``drop_path_mode``, ``remat_mode(cfg)`` and the RoPE coordinate
     augmentation settings (which only a training forward applies). The TPU execution options (scan, sharding, kernel dispatch
     thresholds) do not apply (``configs/config.py check_train_slice``)."""
     s = cfg.student
+    if is_convnext(cfg):
+        return convnext_kwargs_from_cfg(cfg, teacher=teacher)
     policy = Policy.from_cfg(cfg.compute_precision)
     # an override "+student.n_blocks=N" (a key the schema lacks) cuts the
     # arch's depth, for smoke runs at full width
@@ -99,23 +110,34 @@ def remat_mode(cfg) -> str:
     return remat
 
 
+def is_convnext(cfg) -> bool:
+    return str(cfg.student.arch).startswith("convnext")
+
+
 def vit_ctor(cfg):
-    """The constructor of ``student.arch``; ConvNeXt and unknown archs
-    raise."""
+    """The constructor of ``student.arch``, a ViT's or a ConvNeXt's; unknown
+    archs raise, and so does a ConvNeXt on an fp8 / int8
+    ``train.low_precision.arm``, in the JAX package's words
+    (``dinov3_tpu/models/__init__.py build_backbone``)."""
     arch = cfg.student.arch
-    if arch.startswith("convnext"):
-        raise NotImplementedError(
-            f"student.arch={arch!r}: ConvNeXt is not ported yet (tail slice)")
+    if is_convnext(cfg):
+        arm = lowp_cfg(cfg)["arm"]
+        if arm != "bf16":
+            raise ValueError(
+                f"train.low_precision.arm={arm!r} requires a ViT backbone (the "
+                "quantized matmuls live in the attn/mlp block kernels); "
+                "student.arch=" + arch)
+        return get_convnext_arch(arch)
     if arch not in ARCHS:
         raise ValueError(f"unknown arch {arch!r}; available: {sorted(ARCHS)}")
     return ARCHS[arch]
 
 
-def build_backbone(cfg, *, device="cuda", seed: int = 0) -> DinoVisionTransformer:
-    """The configured (teacher/serve) ViT with a seeded random init, in the
-    policy's parameter dtype, on ``device``. The init is drawn on the CPU
-    from a ``torch.Generator`` seeded with ``seed``, so the weights are the
-    same whatever the device."""
+def build_backbone(cfg, *, device="cuda", seed: int = 0):
+    """The configured (teacher/serve) backbone, a ViT or a ConvNeXt, with a
+    seeded random init, in the policy's parameter dtype, on ``device``. The
+    init is drawn on the CPU from a ``torch.Generator`` seeded with
+    ``seed``, so the weights are the same whatever the device."""
     dev = resolve_device(device)
     model = vit_ctor(cfg)(**backbone_kwargs_from_cfg(cfg))
     model.init_weights(torch.Generator().manual_seed(seed))
@@ -124,33 +146,35 @@ def build_backbone(cfg, *, device="cuda", seed: int = 0) -> DinoVisionTransforme
 
 
 def build_model_for_eval(cfg, ckpt_dir: str | None = None, *, device="cuda",
-                         seed: int = 0, meta_weights=None) -> DinoVisionTransformer:
-    """The teacher backbone for feature extraction and evals, frozen, on
-    ``device``. With ``ckpt_dir`` (a trainer's ``<output-dir>/ckpt``, of
-    this package or the JAX package's local-npz kind) it holds the EMA
-    teacher's backbone of the latest finalized step, loaded strictly; with
-    ``meta_weights`` (a Meta release ``state_dict``, or the path of its
-    file) those weights, converted and loaded strictly
-    (``interop/torch_convert.py``); with neither, the seeded random init of
-    ``build_backbone``. From a checkpoint the model is built on the
-    ``meta`` device and takes the checkpoint's tensors on ``device``
-    directly, with no draws on the host."""
+                         seed: int = 0, meta_weights=None):
+    """The teacher backbone (a ViT or a ConvNeXt) for feature extraction
+    and evals, frozen, on ``device``. With ``ckpt_dir`` (a trainer's
+    ``<output-dir>/ckpt``, of this package or the JAX package's local-npz
+    kind) it holds the EMA teacher's backbone of the latest finalized step,
+    loaded strictly; with ``meta_weights`` (a Meta release ViT
+    ``state_dict``, or the path of its file) those weights, converted and
+    loaded strictly (``interop/torch_convert.py``); with neither, the
+    seeded random init of ``init_weights``, drawn on ``device`` from a
+    generator there seeded with ``seed`` (on the CPU: ``build_backbone``'s
+    draws; on the card a ViT-7B's 6.7 B draws take no host memory). The
+    model is built on the ``meta`` device and takes its tensors on
+    ``device`` directly."""
     if ckpt_dir and meta_weights is not None:
         raise ValueError("pass ckpt_dir or meta_weights, not both")
     dev = resolve_device(device)
-    if ckpt_dir:  # built on the meta device: the checkpoint's tensors, no host draws
+    dtype = Policy.from_cfg(cfg.compute_precision).param_dtype
+    with torch.device("meta"):
+        model = vit_ctor(cfg)(**backbone_kwargs_from_cfg(cfg))
+    log = logging.getLogger(LOGGER_NAME)
+    if ckpt_dir:
         from dinov3_tpu_torch.checkpoint import teacher_backbone_state_dict
 
         step, state_dict = teacher_backbone_state_dict(ckpt_dir)
-        with torch.device("meta"):
-            model = vit_ctor(cfg)(**backbone_kwargs_from_cfg(cfg))
-        dtype = Policy.from_cfg(cfg.compute_precision).param_dtype
         model.load_state_dict({k: v.to(device=dev, dtype=dtype, copy=True)
                                for k, v in state_dict.items()}, strict=True, assign=True)
-        logging.getLogger(LOGGER_NAME).info(
-            "eval model: EMA teacher backbone of step %d from %s", step, ckpt_dir)
+        log.info("eval model: EMA teacher backbone of step %d from %s", step, ckpt_dir)
         return model.requires_grad_(False).eval()
-    model = build_backbone(cfg, device="cpu", seed=seed)
+    model = model.to_empty(device=dev)
     if meta_weights is not None:
         from dinov3_tpu_torch.interop.torch_convert import (
             load_backbone_from_meta,
@@ -160,13 +184,15 @@ def build_model_for_eval(cfg, ckpt_dir: str | None = None, *, device="cuda",
         sd = (read_meta_weights(meta_weights) if isinstance(meta_weights, (str, os.PathLike))
               else meta_weights)
         load_backbone_from_meta(model, sd, strict=True)
-        logging.getLogger(LOGGER_NAME).info("eval model: Meta-layout weights (%d entries)",
-                                            len(sd))
-    return model.requires_grad_(False).to(dev)
+        log.info("eval model: Meta-layout weights (%d entries)", len(sd))
+    else:
+        model.init_weights(torch.Generator(device=dev).manual_seed(seed))
+    return model.to(dtype=dtype).requires_grad_(False).eval()
 
 
 __all__ = [
-    "ARCHS", "DinoVisionTransformer", "backbone_kwargs_from_cfg",
-    "build_backbone", "build_model_for_eval", "remat_mode", "vit_ctor", "vit_large",
-    "vit_test",
+    "ARCHS", "CONVNEXT_SIZES", "ConvNeXt", "DinoVisionTransformer",
+    "backbone_kwargs_from_cfg", "build_backbone", "build_model_for_eval",
+    "get_convnext_arch", "is_convnext", "remat_mode",
+    "vit_ctor", "vit_large", "vit_test",
 ]

@@ -59,3 +59,30 @@ def mask_residual_planned(x: torch.Tensor, branch_out: torch.Tensor,
     masked = torch.where(keep_bits.reshape(shape), branch_out / keep,
                          torch.zeros_like(branch_out))
     return x + masked.to(x.dtype)
+
+
+class DropPath(torch.nn.Module):
+    """Per-sample Bernoulli residual mask (``dinov3_tpu/ops/drop_path.py``
+    ``DropPath``, the ConvNeXt stages' form): the branch runs for every
+    sample and a dropped sample's output is zeroed, a kept one's scaled by
+    1 / keep. The keep bits [B] bool come in with the call (a pass plan's
+    slice, drawn from an explicit generator by ``rng/plan.py``); the
+    module draws nothing itself."""
+
+    def __init__(self, rate: float = 0.0):
+        super().__init__()
+        self.rate = float(rate)
+
+    def forward(self, x: torch.Tensor, keep_bits: torch.Tensor | None = None) -> torch.Tensor:
+        if self.rate == 0.0 or keep_bits is None:
+            return x
+        keep = 1.0 - self.rate
+        shape = (x.shape[0],) + (1,) * (x.ndim - 1)
+        return torch.where(keep_bits.reshape(shape), x / keep,
+                           torch.zeros_like(x)).to(x.dtype)
+
+
+def mask_keep_bits(generator: torch.Generator, batch: int, rate: float) -> torch.Tensor:
+    """[B] bool keep bits of ``DropPath``, each True with probability
+    1 - rate, from ``generator`` (never the global RNG)."""
+    return torch.rand(batch, generator=generator) < 1.0 - rate

@@ -72,6 +72,6 @@ def make_ffn_layer(kind: str, dim: int, hidden_dim: int, **kwargs) -> nn.Module:
         return SwiGLUFFN(dim, hidden_dim, align_to=SWIGLU_ALIGN[kind], **kwargs)
     if kind == "moe":
         raise NotImplementedError(
-            "ffn_layer='moe' is not ported yet: MoE comes with the tail slice "
-            "of the port (ROADMAP M12)")
+            "ffn_layer='moe' is not ported yet: MoE with its aux loss is next in "
+            "ROADMAP M12's one-card part")
     raise ValueError(f"unknown ffn layer {kind!r}")

@@ -24,6 +24,9 @@ Two derivations, as in the reference (``rng.plan``):
   each pass draws the RoPE factors in three draws, as the reference's
   per-block ``fold_in`` keys do.
 
+A ConvNeXt student (two passes, no plan engine, as in the reference)
+takes per-block keep bits of its per-sample mask (``convnext_plan``).
+
 The numbers are not JAX's (threefry is not ported): tests hand the JAX
 plan across as numpy instead, and hold the two derivations' statistics to
 the reference's.
@@ -34,7 +37,11 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from dinov3_tpu_torch.ops.drop_path import resolve_drop_path, subset_keep_count
+from dinov3_tpu_torch.ops.drop_path import (
+    mask_keep_bits,
+    resolve_drop_path,
+    subset_keep_count,
+)
 from dinov3_tpu_torch.ops.rope import augment_coords, rope_aug_values
 
 CROP_KINDS = ("global", "local")
@@ -158,6 +165,23 @@ def fold_in_plan(seed: int, iteration: int, microbatch: int | None = None, *,
         for k in CROP_KINDS:
             plans[k]["rope"] = factors(k)
     return plans
+
+
+def convnext_plan(seed: int, iteration: int, microbatch: int | None = None, *,
+                  rates: list, rows: dict) -> dict:
+    """A ConvNeXt student's two passes' plans, {"global": plan, "local":
+    plan}, each {"drop_path": {"keep": [n_blocks, rows]}} keep bits of the
+    per-sample mask (``ops/drop_path.py DropPath``), block i's True with
+    probability 1 - rates[i], drawn from the generator of (seed,
+    iteration[, microbatch], pass, 0, i); {} for a pass without drop path.
+    The JAX ConvNeXt draws its masks in its modules, never from a step
+    plan, so these bits are the port's own."""
+    base = (seed, iteration) + (() if microbatch is None else (microbatch,))
+    if not any(r > 0.0 for r in rates):
+        return {k: {} for k in CROP_KINDS}
+    return {k: {"drop_path": {"keep": torch.stack([
+        mask_keep_bits(key_generator(*base, PASS_TAGS[k], 0, i), rows[k], r)
+        for i, r in enumerate(rates)])}} for k in CROP_KINDS}
 
 
 def plan_to_device(plan: dict | None, device) -> dict:

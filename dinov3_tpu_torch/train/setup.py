@@ -8,6 +8,7 @@ metrics ring, ``telemetry.async_metrics``) and, under an fp8 / int8
 from __future__ import annotations
 
 import dataclasses
+import time
 from typing import Callable
 
 from dinov3_tpu_torch.configs.config import lowp_cfg, warn_lowp_divergence
@@ -59,6 +60,8 @@ class TrainSetup:
     # ({site: relative Frobenius error, "max"}; None on the bf16 arm)
     lowp: dict | None = None
     lowp_drift: dict | None = None
+    # seconds of the set-up's meta-arch: its modules and their draws
+    draws_s: float = 0.0
 
     def scalars(self, iteration: int) -> dict:
         s = self.schedules.at(iteration)
@@ -82,7 +85,9 @@ def build_train_setup(cfg, example_batch: dict, *, device="cuda",
     cuts the configured depth (None keeps it; a distillation teacher keeps
     its recipe's)."""
     dev = resolve_device(device)
+    t0 = time.perf_counter()
     meta = SSLMetaArch(cfg, seed=seed, n_blocks=n_blocks, teacher_device=dev)
+    draws_s = time.perf_counter() - t0
     if meta.teacher_source == "serve" and "teacher_cls" not in example_batch:
         # the serve arm reads the teacher's features from the batch: fail
         # at set-up, not at the first step
@@ -128,4 +133,4 @@ def build_train_setup(cfg, example_batch: dict, *, device="cuda",
                       step_fn=make_train_step(optimizer, seed=seed, accum_steps=accum,
                                               lowp=lp),
                       launch_fn=launch, telemetry=plan, lowp=lp,
-                      lowp_drift=drift)
+                      lowp_drift=drift, draws_s=draws_s)

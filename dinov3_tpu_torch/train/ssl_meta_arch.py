@@ -68,12 +68,12 @@ from dinov3_tpu_torch.losses import (
     softmax_center_teacher,
     update_center,
 )
-from dinov3_tpu_torch.models import ARCHS, backbone_kwargs_from_cfg, fp8_blocks
+from dinov3_tpu_torch.models import backbone_kwargs_from_cfg, fp8_blocks, is_convnext, vit_ctor
 from dinov3_tpu_torch.ops.common import Policy, canonical_dtype
 from dinov3_tpu_torch.ops.dino_head import DINOHead
 from dinov3_tpu_torch.ops.packing import packed_layout
 from dinov3_tpu_torch.ops.resize import resize_grid
-from dinov3_tpu_torch.rng.plan import fold_in_plan, step_generator, step_plan
+from dinov3_tpu_torch.rng.plan import convnext_plan, fold_in_plan, step_generator, step_plan
 from dinov3_tpu_torch.train.optimizer import ema_
 
 logger = logging.getLogger(LOGGER_NAME)
@@ -111,11 +111,8 @@ class SSLMetaArch(nn.Module):
         is drawn on ``teacher_device``; everything else on the CPU."""
         super().__init__()
         check_train_slice(cfg)
-        arch = cfg.student.arch
-        if arch not in ARCHS:
-            raise NotImplementedError(
-                f"student.arch={arch!r}: the training slice ports the ViTs "
-                f"{sorted(ARCHS)}")
+        ctor = vit_ctor(cfg)  # unknown archs raise
+        self.convnext = is_convnext(cfg)
         self.cfg = cfg
         self.n_local_crops = cfg.crops.local_crops_number
         self.centering = cfg.train.centering
@@ -128,20 +125,26 @@ class SSLMetaArch(nn.Module):
         self.streaming_targets = streaming_targets_wished(cfg)
         self.loss_k_tile = int((cfg.get("loss") or {}).get("k_tile") or 8192)
         # the crop-packed student (default) or the two-pass oracle; a batch
-        # whose local crops do not pack two to a row runs the two passes
-        self.crop_packing = crop_packing_wished(cfg)
+        # whose local crops do not pack two to a row runs the two passes.
+        # A ConvNeXt has no token sequence to pack, and its drop path takes
+        # per-block keep bits (``convnext_plan``): both are off for it,
+        # silently, as in the JAX package
+        self.crop_packing = crop_packing_wished(cfg) and not self.convnext
         # the step plan (default) or the per-pass, per-block generators
-        self.rng_plan = rng_plan_wished(cfg)
+        self.rng_plan = rng_plan_wished(cfg) and not self.convnext
         self._warned_unpacked = False
         self.distillation = bool(cfg.distillation.enabled)
         # where the teacher's features come from (serve: the batch planes)
         self.teacher_source = (distill_teacher_source(cfg) if self.distillation
                                else "in_step")
         dtype = Policy.from_cfg(cfg.compute_precision).compute_dtype
+        if n_blocks is not None and self.convnext:
+            raise ValueError("n_blocks cuts a ViT's depth; a ConvNeXt's stage "
+                             "depths are cut by +student.depths=[a,b,c,d]")
         depth = {} if n_blocks is None else {"n_blocks": n_blocks}
-        backbone = _uninitialized(ARCHS[arch],
+        backbone = _uninitialized(ctor,
                                   **{**backbone_kwargs_from_cfg(cfg, teacher=False), **depth})
-        if fp8_blocks(cfg):  # the student's block products only
+        if fp8_blocks(cfg) and not self.convnext:  # the ViT student's block products only
             for blk in backbone.blocks:
                 blk.attn.fp8 = blk.mlp.fp8 = True
         self.embed_dim = backbone.embed_dim
@@ -160,7 +163,7 @@ class SSLMetaArch(nn.Module):
         if self.distillation:
             self.teacher = self._distillation_teacher(dtype, seed, teacher_device)
         else:
-            teacher_backbone = _uninitialized(ARCHS[arch], **teacher_kwargs)
+            teacher_backbone = _uninitialized(ctor, **teacher_kwargs)
             self.teacher = nn.ModuleDict({
                 "backbone": teacher_backbone,
                 "dino_head": copy.deepcopy(self.student["dino_head"]),
@@ -171,7 +174,7 @@ class SSLMetaArch(nn.Module):
         self.gram_enabled = bool(cfg.gram.use_loss)
         self.gram = None  # with gram.ema_teacher the anchor is the teacher's patches
         if self.gram_enabled and not cfg.gram.ema_teacher:
-            gram_backbone = _uninitialized(ARCHS[arch], **teacher_kwargs)
+            gram_backbone = _uninitialized(ctor, **teacher_kwargs)
             gram_backbone.load_state_dict(backbone.state_dict())
             self.gram = nn.ModuleDict({"backbone": gram_backbone}).requires_grad_(False)
         self.dino_local_weight_schedule = self._weight_schedule(
@@ -351,8 +354,12 @@ class SSLMetaArch(nn.Module):
                   microbatch: int | None = None) -> dict:
         """The student's plan for this batch at ``iteration``: the step
         plan from ``step_generator`` or, under ``rng.plan=false``, the
-        per-pass, per-block generators of ``fold_in_plan``."""
+        per-pass, per-block generators of ``fold_in_plan``; a ConvNeXt
+        student's per-block keep bits from ``convnext_plan``."""
         bb = self.student["backbone"]
+        if self.convnext:
+            return convnext_plan(seed, iteration, microbatch, rates=bb.dp_rates(),
+                                 rows=self.plan_rows(batch))
         kw = dict(n_blocks=bb.n_blocks, rows=self.plan_rows(batch),
                   rate=bb.drop_path_rate, mode=bb.drop_path_mode,
                   rope_aug=bb.rope_aug)

@@ -10,7 +10,11 @@ other value (the default ``tpu`` included) runs on the card and raises
 without one. Run again with the same ``--output-dir`` and the run resumes
 from its newest finalized checkpoint, the data stream advanced to it
 (``--no-resume`` starts over). The last line of standard output is the
-run's result as one JSON object.
+run's result as one JSON object; its ``startup`` holds the wall-clock
+marks (``time.time()``) of each start-up stage (this module's imports
+done, the config loaded, the CUDA context, the first batch made) and the
+seconds of the set-up, of its module builds and draws, and of the first
+step.
 
 Each iteration queues the step on the device with no host read and hands
 the next batch (made, and pinned for the card, on a producer thread) to
@@ -145,6 +149,9 @@ from dinov3_tpu_torch.utils import (
 )
 
 logger = logging.getLogger(LOGGER_NAME)
+# the wall clock once this module's imports are done: the start of the
+# run's start-up record (``startup`` in the result)
+_T_IMPORTED = time.time()
 
 # the kernels of the training step, by the names the records use
 KERNELS = {"K1": FLASH_FWD, "K2": FLASH_BWD_DQ, "K3": FLASH_BWD_DKV,
@@ -319,6 +326,32 @@ def run_eval(cfg, teacher_backbone, it: int, out_dir: str) -> dict:
     return {**record, "seconds": seconds}
 
 
+class _FirstStep:
+    """Seconds from the set-up's end to the first step's end: CUDA events
+    on the card (read after the run, so nothing waits on them), the host
+    clock on the CPU. ``mark`` after each dispatch keeps only the first."""
+
+    def __init__(self, device):
+        self.cuda = device.type == "cuda"
+        self.marks: list = []
+        self.mark()
+
+    def mark(self) -> None:
+        if len(self.marks) >= 2:
+            return
+        if self.cuda:
+            self.marks.append(torch.cuda.Event(enable_timing=True))
+            self.marks[-1].record()
+        else:
+            self.marks.append(time.perf_counter())
+
+    def seconds(self) -> float | None:
+        if len(self.marks) < 2:
+            return None
+        a, b = self.marks
+        return a.elapsed_time(b) / 1e3 if self.cuda else b - a
+
+
 class _GcTimes:
     """Times the collector's passes while installed (``gc.callbacks``)."""
 
@@ -338,19 +371,25 @@ class _GcTimes:
                 for g, v in sorted(self.ms.items())}
 
 
-def do_train(cfg, args) -> dict:
+def do_train(cfg, args, startup: dict | None = None) -> dict:
     device = resolve_device(train_device(cfg))
     B = global_batch_size(cfg, 1)
     total_iters = total_iterations(cfg, args)
     refuse_waiting(cfg, args, total_iters)
     prof = profile_window(args, total_iters)
     with DebugNans() if args.debug_nans else contextlib.nullcontext():
-        return _do_train(cfg, args, device, B, total_iters, prof)
+        return _do_train(cfg, args, device, B, total_iters, prof, startup)
 
 
-def _do_train(cfg, args, device, B: int, total_iters: int, prof) -> dict:
+def _do_train(cfg, args, device, B: int, total_iters: int, prof,
+              startup: dict | None = None) -> dict:
+    # the start-up record: wall-clock marks (``time.time()``) of each stage
+    # before the first step, and the set-up's and first step's seconds
+    startup = {"imported": _T_IMPORTED, **(startup or {})}
     if device.type == "cuda":
         build_kernels(list(KERNELS.values()))  # one nvcc each, in parallel
+        torch.empty(0, device=device)  # the CUDA context
+    startup["cuda_init"] = time.time()
     out_dir = cfg.train.output_dir
     os.makedirs(out_dir, exist_ok=True)
     ckpt = Checkpointer(f"{out_dir}/ckpt", max_to_keep=cfg.checkpointing.max_to_keep,
@@ -383,10 +422,13 @@ def _do_train(cfg, args, device, B: int, total_iters: int, prof) -> dict:
 
             example = {**first, **teacher_feature_example(
                 cfg, int(first["global_crops"].shape[0]))}
+        startup["first_batch"] = time.time()
         t0 = time.perf_counter()
         setup = build_train_setup(cfg, example, device=device, seed=cfg.train.seed)
-        logger.info("device %s | batch %d | setup %.1f s", device, B,
-                    time.perf_counter() - t0)
+        startup["setup_s"] = time.perf_counter() - t0
+        startup["draws_s"] = setup.draws_s
+        logger.info("device %s | batch %d | setup %.1f s (modules and draws %.1f s)",
+                    device, B, startup["setup_s"], startup["draws_s"])
         if memory_on:
             tracer.emit_memory("setup")
         engine = resolved_engine(setup)
@@ -528,6 +570,7 @@ def _do_train(cfg, args, device, B: int, total_iters: int, prof) -> dict:
         if teacher_server is not None:
             first = teacher_server.annotate(first)
         pending = put_batch(first, device)
+        first_step = _FirstStep(device)
         steps = metric_logger.log_every(
             tracer.wrap_iter(data_iter, start_iteration=start_iter), print_freq=10,
             header="Train", n_iterations=total_iters,
@@ -547,6 +590,7 @@ def _do_train(cfg, args, device, B: int, total_iters: int, prof) -> dict:
                     # misses packed through the engine behind the step
                     with tracer.span("teacher_serve", it):
                         raw = teacher_server.annotate(raw)
+                first_step.mark()
                 with tracer.span("h2d", it):
                     pending = put_batch(raw, device)  # queued behind the step
                 if memory_on and not compile_sampled:
@@ -616,7 +660,9 @@ def _do_train(cfg, args, device, B: int, total_iters: int, prof) -> dict:
         if recorder is not None:
             recorder.close()
 
+    startup["first_step_s"] = first_step.seconds()
     result.update({
+        "startup": startup,
         "final_loss": last_loss, "iterations": state.step, "device": str(device),
         "saves": saves, "evals": evals, "gc": gc_times.summary(),
         "launches": {k: kern.launches for k, kern in KERNELS.items()},
@@ -662,12 +708,12 @@ def do_train_multidistillation(cfg, args) -> dict:
                        f"multidistillation student {assignment.name!r} config")
 
 
-def _run_logged(cfg, args, out_dir: str, title: str) -> dict:
+def _run_logged(cfg, args, out_dir: str, title: str, startup: dict | None = None) -> dict:
     setup_job(cfg)
     handlers = setup_logging(out_dir)
     try:
         logger.info("%s:\n%s", title, json.dumps(cfg.to_dict(), indent=1, default=str))
-        return do_train(cfg, args)
+        return do_train(cfg, args, startup)
     finally:
         remove_handlers(handlers)
 
@@ -678,7 +724,8 @@ def main(argv=None) -> dict:
     cfg.train.output_dir = args.output_dir
     if cfg.multidistillation.enabled:
         return do_train_multidistillation(cfg, args)
-    return _run_logged(cfg, args, args.output_dir, "config")
+    return _run_logged(cfg, args, args.output_dir, "config",
+                       startup={"config": time.time()})
 
 
 if __name__ == "__main__":

@@ -240,8 +240,12 @@ def test_build_backbone_is_seeded_and_refuses_what_is_not_ported():
     assert not torch.equal(a.cls_token, c.cls_token)
     assert a.cls_token.dtype == torch.float32  # param_dtype fp32
     assert a.dtype == torch.bfloat16           # compute_dtype bf16
-    for bad, err in (("student.arch=convnext_tiny", NotImplementedError),
-                     ("student.arch=vit_nope", ValueError),
+    # ConvNeXt is ported: convnext_tiny builds (tests/test_torch_convnext.py
+    # holds it against JAX)
+    cfg2 = get_default_config()
+    apply_dot_overrides(cfg2, ["student.arch=convnext_tiny"])
+    assert build_backbone(cfg2, device="cpu").dims == (96, 192, 384, 768)
+    for bad, err in (("student.arch=vit_nope", ValueError),
                      ("student.ffn_layer=moe", NotImplementedError)):
         cfg2 = get_default_config()
         apply_dot_overrides(cfg2, ["student.arch=vit_test", bad])
